@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of adgs_tpu (object-aware dynamic Gaussian splatting).
+
+The serving path — temporal deformation, EWA preprocess, tile binning,
+compositing and the environment-map sky — runs on an NVIDIA Hopper card
+through four hand-written CUDA kernels (csrc/), each with a plain PyTorch
+twin that the CPU tests hold against the JAX package.
+
+The package imports neither JAX nor adgs_tpu.
+"""
+
+from ._device import resolve_device  # noqa: F401  (sets the TF32 guard)

@@ -1,0 +1,145 @@
+"""Build, load and count the hand-written CUDA kernels of csrc/.
+
+Each source is compiled on first use by `nvcc` for sm_90a into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), named by a hash of the source and loaded with ctypes. Every C
+entry point launches on the stream it is given and returns
+cudaGetLastError(); `check` raises when that is not 0.
+
+`launches` counts, per kernel, the calls that launched it. Each wrapper
+adds one where it launches, and nowhere else, so a caller can reset the
+counts, drive a path and read which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "adgs_tpu_torch"
+
+# kernel -> source file in csrc/
+SOURCES = {
+    "compact_live": "compact.cu",
+    "expand": "expand.cu",
+    "composite_fwd": "composite.cu",
+    "grid_sample": "grid_sample.cu",
+}
+
+launches = {name: 0 for name in SOURCES}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha1(src).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one kernel unless its library is already built.
+    Returns (process, temporary output, final path, log path) or None."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = out.with_suffix(".log")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(CSRC / SOURCES[name])]
+    logf = open(log, "w")
+    try:
+        proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
+    finally:
+        logf.close()
+    return proc, tmp, out, log
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, out, log = job
+    if proc.wait() != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n"
+                           + log.read_text())
+    os.replace(tmp, out)
+
+
+def build_all() -> float:
+    """Compile every kernel, one nvcc per source, all at once. Returns the
+    wall seconds taken (0 when everything was already built)."""
+    t0 = time.perf_counter()
+    jobs = {name: _start_build(name) for name in SOURCES}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish_build(name, job)
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (ptxas register and shared-memory use)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _libs[name] = lib
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple | None = None) -> None:
+    """Validate a kernel argument before its pointer is passed."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
