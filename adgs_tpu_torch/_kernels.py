@@ -2,7 +2,8 @@
 
 Each source is compiled on first use by `nvcc` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), named by a hash of the source and loaded with ctypes. Every C
+seconds), named by a hash of the source and of the shared headers
+(csrc/*.cuh) and loaded with ctypes. Every C
 entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises when that is not 0.
 
@@ -31,7 +32,10 @@ SOURCES = {
     "compact_live": "compact.cu",
     "expand": "expand.cu",
     "composite_fwd": "composite.cu",
+    "composite_bwd": "composite_bwd.cu",
+    "segment_sum": "segment_sum.cu",
     "grid_sample": "grid_sample.cu",
+    "grid_sample_bwd": "grid_sample_bwd.cu",
 }
 
 launches = {name: 0 for name in SOURCES}
@@ -55,8 +59,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

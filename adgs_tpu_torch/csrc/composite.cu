@@ -24,15 +24,15 @@
 // shared memory, each thread gathering one Gaussian row through gauss_id
 // with 16-byte loads; every thread then reads the batch from shared memory.
 // A block-wide vote (__syncthreads_count) ends the tile once every pixel
-// has saturated.
+// has saturated. The gating arithmetic lives in composite_common.cuh, which
+// the backward (B4, composite_bwd.cu) replays bit for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kPix = 256;
-constexpr int kGeom = 8;  // mx, my, a, b, c, log-opacity, pad, pad
+using adgs::kGeom;
+using adgs::kPix;
 
 template <int CH>
 __global__ void __launch_bounds__(kPix)
@@ -79,16 +79,15 @@ composite_fwd_kernel(const float* __restrict__ packed, int F,
     if (!done) {
       const int n = min(kPix, count - base);
       for (int j = 0; j < n; ++j) {
-        const float dx = s_mx[j] - px;
-        const float dy = s_my[j] - py;
+        const float dx = __fsub_rn(s_mx[j], px);
+        const float dy = __fsub_rn(s_my[j], py);
         const float power =
-            -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) -
-            s_cb[j] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(0.99f, expf(s_lo[j] + power));
-        if (alpha < 1.0f / 255.0f) continue;
-        const float test_t = T * (1.0f - alpha);
-        if (test_t < 1e-4f) {
+            adgs::splat_power(s_ca[j], s_cb[j], s_cc[j], dx, dy);
+        float e;
+        const float alpha = adgs::splat_alpha(s_lo[j], power, &e);
+        if (alpha == 0.0f) continue;
+        const float test_t = adgs::next_t(T, alpha);
+        if (test_t < adgs::kTEps) {
           done = 1;
           break;
         }

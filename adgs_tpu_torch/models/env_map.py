@@ -11,9 +11,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.grid_sample import grid_sample, grid_sample_torch
-
-SAMPLERS = {"cuda": grid_sample, "torch": grid_sample_torch}
+from ..ops.grid_sample import GridSample
 
 
 def camera_rays(focal: float, height: int, width: int) -> np.ndarray:
@@ -50,15 +48,19 @@ class EnvironmentMap:
         return cls(grid=torch.as_tensor(g, device=resolve_device(device)))
 
     def color(self, view: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
-        """dirs [..., 3] -> sky colour [C, ...]. backend "cuda" samples with
-        kernel B7 (its plain twin on CPU tensors), "torch" with the plain
-        twin on any device."""
+        """dirs [..., 3] -> sky colour [C, ...], differentiable with respect
+        to the grid (the rays are constants: they get no gradient).
+        backend "cuda" samples with kernel B7 and takes the gradient with
+        B8 (their twins on CPU tensors), "torch" with the twins on any
+        device."""
         view = view / torch.clamp(torch.linalg.vector_norm(
             view, dim=-1, keepdim=True), min=1e-12)
         angles = direction_to_angles(view)
         coords = angles * angles.new_tensor([1.0 / math.pi, 2.0 / math.pi])
-        sample = SAMPLERS[backend]
-        return torch.sigmoid(sample(self.grid, coords.contiguous()))
+        if backend not in ("cuda", "torch"):
+            raise ValueError(f"unknown backend: {backend}")
+        return torch.sigmoid(GridSample.apply(
+            self.grid, coords.detach().contiguous(), backend))
 
     def image_background(self, cam_rays: torch.Tensor,
                          world_view: torch.Tensor,

@@ -1,11 +1,17 @@
-"""Bilinear grid sampling for the environment map (counterpart of
-adgs_tpu/ops/grid_sample.py and env_map._grid_sample_align_corners).
+"""Bilinear grid sampling for the environment map and its adjoint
+(counterpart of adgs_tpu/ops/grid_sample.py and
+env_map._grid_sample_align_corners with its custom VJP).
 
-`grid_sample` is kernel B7 (csrc/grid_sample.cu) on CUDA tensors and its
-plain twin `grid_sample_torch` on CPU tensors. The contract is torch's
-F.grid_sample(align_corners=True, padding_mode='zeros') for a [C, Hg, Wg]
-grid at [..., 2] (x, y) coords in [-1, 1], returning [C, ...]; the port
-never calls F.grid_sample itself.
+  - `grid_sample` is kernel B7 (csrc/grid_sample.cu) on CUDA tensors and its
+    plain twin `grid_sample_torch` on CPU tensors. The contract is torch's
+    F.grid_sample(align_corners=True, padding_mode='zeros') for a [C, Hg, Wg]
+    grid at [..., 2] (x, y) coords in [-1, 1], returning [C, ...];
+  - `grid_sample_bwd` is kernel B8 (csrc/grid_sample_bwd.cu), the gradient
+    with respect to the grid, and `grid_sample_bwd_torch` its twin, the
+    per-channel flat scatter of env_map._grid_sample_bwd;
+  - `GridSample` is the autograd Function over them (coordinates get no
+    gradient, as in the JAX package).
+The port never calls F.grid_sample itself.
 """
 
 from __future__ import annotations
@@ -77,3 +83,80 @@ def grid_sample(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     _kernels.check(err, "grid_sample")
     _kernels.launches["grid_sample"] += 1
     return out
+
+
+def grid_sample_bwd_torch(g: torch.Tensor, coords: torch.Tensor,
+                          grid_shape) -> torch.Tensor:
+    """Plain twin of kernel B8: d_grid [C, Hg, Wg] = the adjoint of the
+    sample at coords [..., 2] applied to g [C, ...], one flat index_add_
+    per channel in tap order (tap-major, as env_map._grid_sample_bwd)."""
+    C, Hg, Wg = grid_shape
+    taps = _taps(grid_shape, coords.reshape(-1, 2))
+    ids4 = torch.cat([yi * Wg + xi for xi, yi, _ in taps])
+    gf = g.reshape(C, -1)
+    d_grid = g.new_zeros((C, Hg * Wg))
+    for c in range(C):
+        vals4 = torch.cat([gf[c] * w for _, _, w in taps])
+        d_grid[c].index_add_(0, ids4, vals4)
+    return d_grid.reshape(C, Hg, Wg)
+
+
+def grid_sample_bwd(g: torch.Tensor, coords: torch.Tensor,
+                    grid_shape) -> torch.Tensor:
+    """Kernel B8 on CUDA tensors; its plain twin on CPU tensors. The tap
+    cell ids are ordered by a stable torch.sort between the kernel's two
+    launches, so every cell is summed in tap order and written once."""
+    if g.device.type == "cpu":
+        return grid_sample_bwd_torch(g, coords, grid_shape)
+    C, Hg, Wg = grid_shape
+    npix = coords.numel() // 2
+    if C * Hg * Wg >= 2 ** 31 or 4 * npix >= 2 ** 31:
+        raise ValueError("grid_sample_bwd: too large for int32 indexing")
+    if not 1 <= C <= 8:
+        raise ValueError(f"grid_sample_bwd: {C} channels unsupported")
+    _kernels.require(coords, "coords", torch.float32)
+    _kernels.require(g, "g", torch.float32, (C,) + tuple(coords.shape[:-1]))
+    dev = g.device
+    lib = _kernels.library("grid_sample_bwd")
+    p = _kernels.ptr
+    st = _kernels.stream(dev)
+    cells = torch.empty(4 * npix, dtype=torch.int32, device=dev)
+    fn = lib.adgs_sky_tap_cells
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2)
+    _kernels.check(fn(p(coords), npix, Hg, Wg, p(cells), st),
+                   "grid_sample_bwd (tap cells)")
+    sorted_cells, order = torch.sort(cells, stable=True)
+    d_grid = torch.zeros((C, Hg, Wg), dtype=torch.float32, device=dev)
+    fn = lib.adgs_sky_scatter_runs
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    _kernels.check(fn(p(sorted_cells), p(order), 4 * npix, p(coords), p(g),
+                      C, npix, Hg, Wg, p(d_grid), st),
+                   "grid_sample_bwd (scatter runs)")
+    _kernels.launches["grid_sample_bwd"] += 1
+    return d_grid
+
+
+class GridSample(torch.autograd.Function):
+    """Sample grid [C, Hg, Wg] at coords [..., 2] -> [C, ...],
+    differentiable with respect to the grid only. backend "cuda": B7
+    forward, B8 backward (their twins on CPU tensors); "torch": the twins
+    on any device."""
+
+    @staticmethod
+    def forward(ctx, grid, coords, backend: str):
+        ctx.save_for_backward(coords)
+        ctx.grid_shape, ctx.backend = tuple(grid.shape), backend
+        fwd = grid_sample if backend == "cuda" else grid_sample_torch
+        return fwd(grid, coords)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        bwd = (grid_sample_bwd if ctx.backend == "cuda"
+               else grid_sample_bwd_torch)
+        return bwd(g.contiguous(), coords, ctx.grid_shape), None, None

@@ -4,6 +4,11 @@ Backends:
   - "cuda":  the hand-written kernels (default for CUDA tensors; on CPU
              tensors every kernel wrapper runs its plain twin);
   - "torch": the plain PyTorch twins on any device.
+
+Differentiable with respect to the Gaussians' float inputs (and
+screen_offset). The binning is integer plumbing: it runs under
+torch.no_grad() from the same Preprocessed the gradient pass uses, so a
+training step preprocesses once.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
     return backend
 
 
-@torch.no_grad()
 def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
               scales: torch.Tensor, rotations: torch.Tensor,
               settings: RasterSettings,
@@ -37,6 +41,7 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
               colors_precomp: Optional[torch.Tensor] = None,
               flow_points: Optional[torch.Tensor] = None,
               semantic: Optional[torch.Tensor] = None,
+              screen_offset: Optional[torch.Tensor] = None,
               active_mask: Optional[torch.Tensor] = None,
               backend: Optional[str] = None,
               capacity: int = 1 << 18,
@@ -48,14 +53,14 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
     backend = resolve_backend(backend, means3d.device)
     prep = prep_lib.preprocess(means3d, scales, rotations, opacities, shs,
                                settings, colors_precomp=colors_precomp,
+                               screen_offset=screen_offset,
                                active_mask=active_mask)
     mark(stage_marks, "preprocess")
-    binning = binning_lib.bin_gaussians(prep, settings, capacity,
-                                        backend=backend)
+    with torch.no_grad():
+        binning = binning_lib.bin_gaussians(prep, settings, capacity,
+                                            backend=backend)
     mark(stage_marks, "binning")
-    render = (render_lib.render_cuda if backend == "cuda"
-              else render_lib.render_torch)
-    out = render(prep, binning, settings, flow_points=flow_points,
-                 semantic=semantic)
+    out = render_lib.render(prep, binning, settings, flow_points=flow_points,
+                            semantic=semantic, backend=backend)
     mark(stage_marks, "compositing")
     return out

@@ -25,6 +25,7 @@ class BlendWeights(NamedTuple):
     weights: torch.Tensor  # [..., G] alpha_j * T_j
     t_eff: torch.Tensor    # [...] effective transmittance (the rendered T)
     include: torch.Tensor  # [..., G] contributions before termination
+    t_excl: torch.Tensor   # [..., G] T_j, the transmittance before j
 
 
 def blend_weights(alpha: torch.Tensor) -> BlendWeights:
@@ -37,9 +38,11 @@ def blend_weights(alpha: torch.Tensor) -> BlendWeights:
     a_eff = torch.where(include, alpha, torch.zeros_like(alpha))
     log1m_eff = torch.log1p(-a_eff)
     log_t_excl = torch.cumsum(log1m_eff, dim=-1) - log1m_eff
-    weights = a_eff * torch.exp(log_t_excl)
+    t_excl = torch.exp(log_t_excl)
+    weights = a_eff * t_excl
     t_eff = torch.exp(log_t_excl[..., -1] + log1m_eff[..., -1])
-    return BlendWeights(weights=weights, t_eff=t_eff, include=include)
+    return BlendWeights(weights=weights, t_eff=t_eff, include=include,
+                        t_excl=t_excl)
 
 
 def depth_feature(depth: torch.Tensor, inv_depth: bool) -> torch.Tensor:

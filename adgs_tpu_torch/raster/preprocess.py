@@ -52,7 +52,10 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                rotations: torch.Tensor, opacities: torch.Tensor,
                shs: Optional[torch.Tensor], settings: RasterSettings,
                colors_precomp: Optional[torch.Tensor] = None,
+               screen_offset: Optional[torch.Tensor] = None,
                active_mask: Optional[torch.Tensor] = None) -> Preprocessed:
+    """screen_offset: [N, 2] zeros added to mean2d; its gradient is
+    dL/dmean2d, which the densification statistics accumulate."""
     if opacities.dim() == 2:
         opacities = opacities[..., 0]
 
@@ -65,6 +68,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     mean2d = torch.stack([ndc_to_pix(p_proj[..., 0], settings.image_width),
                           ndc_to_pix(p_proj[..., 1], settings.image_height)],
                          dim=-1)
+    if screen_offset is not None:
+        mean2d = mean2d + screen_offset
 
     cov3d = build_cov3d(scales, rotations, settings.scale_modifier)
     safe_view = torch.where(in_front[..., None], p_view,
@@ -77,6 +82,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     # support q <= 2 ln(255 op) (+1e-3 slack) where alpha can clear 1/255
     extent = 3.0 * torch.sqrt(torch.clamp(c2.cov[..., 0::2], min=0.0))
     q_max = 2.0 * torch.log(255.0 * torch.clamp(opacities, min=1e-30)) + 1e-3
+    # detached, as JAX's stop_gradient: the support bound is integer
+    # plumbing, not a differentiable quantity
     shrink = torch.sqrt(torch.clamp(q_max, 0.0, 9.0) / 9.0).detach()
     extent = extent * shrink[..., None]
     # peak alpha below the gate contributes nothing anywhere

@@ -1,20 +1,27 @@
-"""Compositing forward over binned instances (counterpart of
-adgs_tpu/raster/pallas/render.py:116-155, 1232-1279).
+"""Compositing over binned instances, forward and backward (counterpart of
+adgs_tpu/raster/pallas/render.py: composite_packed, its VJP and
+render_pallas).
 
-`composite_fwd` is kernel B3 (csrc/composite.cu) on CUDA tensors and its
-plain twin `composite_fwd_torch` on CPU tensors. Both read packed
-per-Gaussian rows [N, F] (8 geometry columns: mean2d, conic, log-opacity,
-2 pad; then ch features padded to a multiple of 8) and return the JAX
-kernel's layout: blended [T, ch, 256] and final_t [T, 256].
-
-Forward only: the autograd Function over the backward kernels belongs to
-the training path.
+Three kernels, each beside its plain twin; a wrapper launches the kernel
+on CUDA tensors and runs the twin on CPU tensors:
+  - B3 `composite_fwd` (csrc/composite.cu) / `composite_fwd_torch`: packed
+    per-Gaussian rows [N, F] (8 geometry columns: mean2d, conic,
+    log-opacity, 2 pad; then ch features padded to a multiple of 8) ->
+    blended [T, ch, 256] and final_t [T, 256], the JAX kernel's layout;
+  - B4 `composite_bwd` (csrc/composite_bwd.cu) / `composite_bwd_torch`:
+    the front-to-back replay -> one gradient row per instance, written to
+    its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch));
+  - B5 `segment_sum` (csrc/segment_sum.cu) / `segment_sum_torch`: the sum
+    of each segment of contiguous rows; `segment_reduce_contiguous` turns
+    B4's presort rows into per-Gaussian gradients.
+`CompositePacked` is the autograd Function over them: B3 forward, B4 then
+B5 backward ("cuda"), or the three twins ("torch").
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,13 +32,19 @@ from .preprocess import Preprocessed
 from .types import RasterOutput, RasterSettings, TILE_PIX, TILE_X, TILE_Y
 
 F_GEOM = 8
+N_GEOM_GRAD = 6    # d mean2d (2), d conic (3), d log-opacity
 OP_FLOOR = 1e-37   # log(max(op, OP_FLOOR)) keeps dead slots finite
-# plain twin: elements of one [tiles, 256, instances] temporary
+# plain twins: elements of one [tiles, 256, instances] temporary
 PLAIN_BATCH_ELEMS = 1 << 25
 
 
 def _round8(x: int) -> int:
     return -(-x // 8) * 8
+
+
+def grad_cols(ch: int) -> int:
+    """Columns of a B4 gradient row: 6 geometry + ch features, padded."""
+    return _round8(N_GEOM_GRAD + ch)
 
 
 def pack_gaussian_rows(mean2d, conic, log_opacity, features):
@@ -63,6 +76,53 @@ def _tile_batches(tile_count: torch.Tensor, budget: int):
     return out
 
 
+class PairCounts(NamedTuple):
+    """(instance, pixel) pairs the sequential compositing loop evaluates."""
+    hit: torch.Tensor    # composited: alpha > 0, before the pixel's stop
+    gated: torch.Tensor  # alpha gated to 0, plus the pair that stops a pixel
+
+
+class _TileBatch(NamedTuple):
+    idx: torch.Tensor       # [G, M] sorted instance index (clamped)
+    in_range: torch.Tensor  # [G, M] j < tile_count
+    rows: torch.Tensor      # [G, M, F] packed rows of the instances
+    dx: torch.Tensor        # [G, P, M] mean.x - px
+    dy: torch.Tensor        # [G, P, M]
+    e: torch.Tensor         # [G, P, M] exp(log-opacity + power)
+    alpha: torch.Tensor     # [G, P, M] gated alpha (0 = skipped)
+
+
+def _tile_alpha(packed, gauss_id, tile_start, tile_count, lo: int, hi: int,
+                m: int, grid_x: int) -> _TileBatch:
+    """The gated alpha of every (instance, pixel) pair of tiles [lo, hi),
+    with csrc/composite_common.cuh's expressions, one PyTorch op per
+    rounding."""
+    dev = packed.device
+    R = gauss_id.shape[0]
+    cnt = tile_count[lo:hi].long()
+    t = torch.arange(lo, hi, device=dev)
+    j = torch.arange(m, device=dev)
+    in_range = j[None, :] < cnt[:, None]
+    idx = torch.clamp(tile_start[lo:hi, None].long() + j[None, :], 0, R - 1)
+    rows = packed[gauss_id[idx].long()]
+    pix = torch.arange(TILE_PIX, device=dev)
+    px = (((t % grid_x) * TILE_X).to(torch.float32)[:, None]
+          + (pix % TILE_X).to(torch.float32))
+    py = (((t // grid_x) * TILE_Y).to(torch.float32)[:, None]
+          + (pix // TILE_X).to(torch.float32))
+    dx = rows[:, None, :, 0] - px[:, :, None]
+    dy = rows[:, None, :, 1] - py[:, :, None]
+    power = (-0.5 * (rows[:, None, :, 2] * dx * dx
+                     + rows[:, None, :, 4] * dy * dy)
+             - rows[:, None, :, 3] * dx * dy)
+    e = torch.exp(rows[:, None, :, 5] + power)
+    alpha = torch.clamp(e, max=composite_mod.ALPHA_MAX)
+    gate = ((power > 0.0) | (alpha < composite_mod.ALPHA_MIN)
+            | ~in_range[:, None, :])
+    alpha = torch.where(gate, torch.zeros_like(alpha), alpha)
+    return _TileBatch(idx, in_range, rows, dx, dy, e, alpha)
+
+
 def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         grid_x: int, count_pairs: bool = False):
@@ -70,54 +130,36 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     alpha gated as in the kernel and weights from composite.blend_weights
     (log-space prefix sums instead of the kernel's running product, so the
     two agree to ~1e-5, not bitwise). Tiles run in batches bounded by
-    PLAIN_BATCH_ELEMS to bound memory.
+    PLAIN_BATCH_ELEMS to bound memory. Differentiable by autograd.
 
-    count_pairs=True also returns the number of (instance, pixel) pairs the
+    count_pairs=True also returns the PairCounts of the pairs the
     sequential loop evaluates: each pixel's instances up to and including
-    the one that ends it."""
+    the one that ends it, split into composited and gated pairs."""
     T = tile_start.shape[0]
-    dev = packed.device
-    R = gauss_id.shape[0]
     blended = packed.new_zeros((T, ch, TILE_PIX))
     final_t = packed.new_ones((T, TILE_PIX))
-    pairs = torch.zeros((), dtype=torch.int64, device=dev)
-    pix = torch.arange(TILE_PIX, device=dev)
-    ox = (pix % TILE_X).to(torch.float32)
-    oy = (pix // TILE_X).to(torch.float32)
+    hit = torch.zeros((), dtype=torch.int64, device=packed.device)
+    gated = torch.zeros((), dtype=torch.int64, device=packed.device)
     for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
         cnt = tile_count[lo:hi].long()
         m = int(cnt.max()) if hi > lo else 0
         if m == 0:
             continue
-        t = torch.arange(lo, hi, device=dev)
-        j = torch.arange(m, device=dev)
-        in_range = j[None, :] < cnt[:, None]                     # [G, M]
-        idx = torch.clamp(tile_start[lo:hi, None].long() + j[None, :], 0,
-                          R - 1)
-        rows = packed[gauss_id[idx].long()]                      # [G, M, F]
-        px = ((t % grid_x) * TILE_X).to(torch.float32)[:, None] + ox
-        py = ((t // grid_x) * TILE_Y).to(torch.float32)[:, None] + oy
-        dx = rows[:, None, :, 0] - px[:, :, None]                # [G, P, M]
-        dy = rows[:, None, :, 1] - py[:, :, None]
-        power = (-0.5 * (rows[:, None, :, 2] * dx * dx
-                         + rows[:, None, :, 4] * dy * dy)
-                 - rows[:, None, :, 3] * dx * dy)
-        alpha = torch.clamp(torch.exp(rows[:, None, :, 5] + power),
-                            max=composite_mod.ALPHA_MAX)
-        gate = ((power > 0.0) | (alpha < composite_mod.ALPHA_MIN)
-                | ~in_range[:, None, :])
-        alpha = torch.where(gate, torch.zeros_like(alpha), alpha)
-        bw = composite_mod.blend_weights(alpha)
-        feats = rows[:, :, F_GEOM:F_GEOM + ch]                   # [G, M, ch]
+        tb = _tile_alpha(packed, gauss_id, tile_start, tile_count, lo, hi, m,
+                         grid_x)
+        bw = composite_mod.blend_weights(tb.alpha)
+        feats = tb.rows[:, :, F_GEOM:F_GEOM + ch]                # [G, M, ch]
         blended[lo:hi] = torch.matmul(bw.weights, feats).transpose(1, 2)
         final_t[lo:hi] = bw.t_eff
         if count_pairs:
-            inc = bw.include & in_range[:, None, :]
+            inc = bw.include & tb.in_range[:, None, :]
             n_inc = inc.sum(-1)
+            n_hit = (inc & (tb.alpha > 0.0)).sum(-1)
             ended = n_inc < cnt[:, None]
-            pairs += (n_inc + ended.long()).sum()
+            hit += n_hit.sum()
+            gated += (n_inc - n_hit + ended.long()).sum()
     if count_pairs:
-        return blended, final_t, pairs
+        return blended, final_t, PairCounts(hit, gated)
     return blended, final_t
 
 
@@ -152,6 +194,187 @@ def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     return out[:, :ch, :], out[:, ch, :]
 
 
+def composite_bwd_torch(packed: torch.Tensor, ch: int,
+                        gauss_id: torch.Tensor, slot_sorted: torch.Tensor,
+                        tile_start: torch.Tensor, tile_count: torch.Tensor,
+                        grid_x: int, fwd_out: torch.Tensor,
+                        g_out: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel B4. fwd_out and g_out are [T, ch+1, 256]: the
+    forward's blended channels and final T, and their cotangents. Returns
+    [R, gc] gradient rows in presort order (csrc/composite_bwd.cu states
+    the formulas); rows of instances that no pixel reached are zero. The
+    replay is the forward twin's: log-space blend_weights."""
+    R = gauss_id.shape[0]
+    gc = grad_cols(ch)
+    out = packed.new_zeros((R, gc))
+    for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
+        m = int(tile_count[lo:hi].max()) if hi > lo else 0
+        if m == 0:
+            continue
+        tb = _tile_alpha(packed, gauss_id, tile_start, tile_count, lo, hi, m,
+                         grid_x)
+        alpha = tb.alpha
+        bw = composite_mod.blend_weights(alpha)
+        gf = g_out[lo:hi, :ch]                                   # [G, ch, P]
+        A = (fwd_out[lo:hi, :ch] * gf).sum(1)                    # [G, P]
+        gt_tfin = g_out[lo:hi, ch] * fwd_out[lo:hi, ch]          # [G, P]
+        feats = tb.rows[:, :, F_GEOM:F_GEOM + ch]                # [G, M, ch]
+        fg = torch.matmul(gf.transpose(1, 2), feats.transpose(1, 2))
+        prefix = torch.cumsum(bw.weights * fg, dim=-1)           # [G, P, M]
+        inv = 1.0 / (1.0 - alpha)
+        d_alpha = (bw.t_excl * fg - (A[..., None] - prefix) * inv
+                   - gt_tfin[..., None] * inv)
+        d_alpha = torch.where(bw.include & (alpha > 0.0), d_alpha,
+                              torch.zeros_like(d_alpha))
+        dp = torch.where(tb.e < composite_mod.ALPHA_MAX, d_alpha * alpha,
+                         torch.zeros_like(d_alpha))
+        a = tb.rows[:, None, :, 2]
+        b = tb.rows[:, None, :, 3]
+        c = tb.rows[:, None, :, 4]
+        dx, dy = tb.dx, tb.dy
+        geom = torch.stack([
+            -(dp * (a * dx + b * dy)).sum(1),
+            -(dp * (c * dy + b * dx)).sum(1),
+            (-0.5 * dp * dx * dx).sum(1),
+            (-dp * dx * dy).sum(1),
+            (-0.5 * dp * dy * dy).sum(1),
+            dp.sum(1)], dim=-1)                                  # [G, M, 6]
+        d_f = torch.matmul(bw.weights.transpose(1, 2),
+                           gf.transpose(1, 2))                   # [G, M, ch]
+        vals = torch.cat([geom, d_f], dim=-1)
+        sel = tb.in_range
+        out[slot_sorted[tb.idx[sel]].long(), :vals.shape[-1]] = vals[sel]
+    return out
+
+
+def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
+                  slot_sorted: torch.Tensor, tile_start: torch.Tensor,
+                  tile_count: torch.Tensor, grid_x: int,
+                  fwd_out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
+    """Kernel B4 on CUDA tensors; its plain twin on CPU tensors."""
+    if packed.device.type == "cpu":
+        return composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
+                                   tile_start, tile_count, grid_x, fwd_out,
+                                   g_out)
+    n, F = packed.shape
+    if not 1 <= ch <= 8 or F != F_GEOM + _round8(ch):
+        raise ValueError(f"composite_bwd: ch={ch} with F={F} unsupported")
+    T = tile_start.shape[0]
+    R = gauss_id.shape[0]
+    _kernels.require(packed, "packed", torch.float32, (n, F))
+    _kernels.require(gauss_id, "gauss_id", torch.int32, (R,))
+    _kernels.require(slot_sorted, "slot_sorted", torch.int32, (R,))
+    _kernels.require(tile_start, "tile_start", torch.int32, (T,))
+    _kernels.require(tile_count, "tile_count", torch.int32, (T,))
+    _kernels.require(fwd_out, "fwd_out", torch.float32, (T, ch + 1, TILE_PIX))
+    _kernels.require(g_out, "g_out", torch.float32, (T, ch + 1, TILE_PIX))
+    gc = grad_cols(ch)
+    rows = torch.zeros((R, gc), dtype=torch.float32, device=packed.device)
+    fn = _kernels.library("composite_bwd").adgs_composite_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    p = _kernels.ptr
+    err = fn(p(packed), F, p(gauss_id), p(slot_sorted), p(tile_start),
+             p(tile_count), T, grid_x, ch, p(fwd_out), p(g_out), gc, p(rows),
+             _kernels.stream(packed.device))
+    _kernels.check(err, "composite_bwd")
+    _kernels.launches["composite_bwd"] += 1
+    return rows
+
+
+def segment_sum_torch(rows: torch.Tensor,
+                      bounds: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel B5: out[i] = rows[bounds[i]:bounds[i+1]].sum(0),
+    as differences of a float64 running sum (so not bitwise the kernel's
+    sequential f32 sums)."""
+    cs = torch.cumsum(rows.to(torch.float64), dim=0)
+    cs = torch.cat([cs.new_zeros((1, rows.shape[1])), cs], dim=0)
+    b = bounds.long()
+    return (cs[b[1:]] - cs[b[:-1]]).to(rows.dtype)
+
+
+def segment_sum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """Kernel B5 on CUDA tensors; its plain twin on CPU tensors. rows
+    [R, D] f32, bounds [n+1] int32 non-decreasing -> [n, D]."""
+    if rows.device.type == "cpu":
+        return segment_sum_torch(rows, bounds)
+    R, D = rows.shape
+    n = bounds.shape[0] - 1
+    _kernels.require(rows, "rows", torch.float32, (R, D))
+    _kernels.require(bounds, "bounds", torch.int32, (n + 1,))
+    out = torch.empty((n, D), dtype=torch.float32, device=rows.device)
+    fn = _kernels.library("segment_sum").adgs_segment_sum
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    p = _kernels.ptr
+    err = fn(p(rows), D, p(bounds), n, p(out), _kernels.stream(rows.device))
+    _kernels.check(err, "segment_sum")
+    _kernels.launches["segment_sum"] += 1
+    return out
+
+
+def contiguous_bounds(gauss_start: torch.Tensor, num_rendered: torch.Tensor,
+                      capacity: int) -> torch.Tensor:
+    """[N+1] segment bounds of each Gaussian's presort rows:
+    [gauss_start[i], gauss_start[i] + tiles_i), clipped to
+    min(num_rendered, capacity) as the JAX reduce clips them (rows past the
+    capacity were never rendered). Computed on the device."""
+    limit = torch.clamp(num_rendered.to(torch.int32), max=capacity)
+    ext = torch.cat([gauss_start.to(torch.int32),
+                     num_rendered.to(torch.int32).reshape(1)])
+    return torch.minimum(ext, limit).contiguous()
+
+
+def segment_reduce_contiguous(rows: torch.Tensor, gauss_start: torch.Tensor,
+                              num_rendered: torch.Tensor,
+                              backend: str = "cuda") -> torch.Tensor:
+    """[R, gc] presort gradient rows -> [N, gc] per-Gaussian sums (B5, or
+    its twin with backend "torch")."""
+    seg = segment_sum if backend == "cuda" else segment_sum_torch
+    return seg(rows, contiguous_bounds(gauss_start, num_rendered,
+                                       rows.shape[0]))
+
+
+class CompositePacked(torch.autograd.Function):
+    """Composite packed rows [N, F] through a Binning: (blended [T, ch, P],
+    final_t [T, P]), differentiable with respect to the rows. backend
+    "cuda": B3 forward, B4 + B5 backward (their twins on CPU tensors);
+    "torch": the twins on any device."""
+
+    @staticmethod
+    def forward(ctx, packed, binning: Binning, ch: int, grid_x: int,
+                backend: str):
+        fwd = composite_fwd if backend == "cuda" else composite_fwd_torch
+        blended, final_t = fwd(packed, ch, binning.gauss_id,
+                               binning.tile_start, binning.tile_count, grid_x)
+        ctx.save_for_backward(packed, torch.cat([blended, final_t[:, None]],
+                                                dim=1))
+        ctx.binning, ctx.ch, ctx.grid_x, ctx.backend = (binning, ch, grid_x,
+                                                        backend)
+        return blended, final_t
+
+    @staticmethod
+    def backward(ctx, g_blended, g_final_t):
+        packed, fwd_out = ctx.saved_tensors
+        b, ch = ctx.binning, ctx.ch
+        g_out = torch.cat([g_blended, g_final_t[:, None]], dim=1).contiguous()
+        bwd = composite_bwd if ctx.backend == "cuda" else composite_bwd_torch
+        rows = bwd(packed, ch, b.gauss_id, b.slot_sorted, b.tile_start,
+                   b.tile_count, ctx.grid_x, fwd_out, g_out)
+        per = segment_reduce_contiguous(rows, b.gauss_start, b.num_rendered,
+                                        ctx.backend)
+        n, F = packed.shape
+        z = packed.new_zeros
+        pieces = [per[:, :N_GEOM_GRAD], z((n, F_GEOM - N_GEOM_GRAD)),
+                  per[:, N_GEOM_GRAD:N_GEOM_GRAD + ch]]
+        if F - F_GEOM - ch:
+            pieces.append(z((n, F - F_GEOM - ch)))
+        return torch.cat(pieces, dim=-1), None, None, None, None
+
+
 def tiles_to_image(tile_px: torch.Tensor,
                    settings: RasterSettings) -> torch.Tensor:
     """[T, P, CH] -> [CH, H, W] (crops the tile padding)."""
@@ -163,8 +386,13 @@ def tiles_to_image(tile_px: torch.Tensor,
     return img.permute(2, 0, 1)
 
 
-def _render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
-            flow_points, semantic, composite) -> RasterOutput:
+def render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
+           flow_points: Optional[torch.Tensor] = None,
+           semantic: Optional[torch.Tensor] = None,
+           backend: str = "cuda") -> RasterOutput:
+    """Composite a preprocessed frame through CompositePacked (counterpart
+    of render_pallas); differentiable with respect to prep's floats, the
+    flow points and the semantic feature."""
     feats = [prep.rgb, composite_mod.depth_feature(
         prep.depth, settings.inv_depth)[:, None]]
     if flow_points is not None:
@@ -174,11 +402,12 @@ def _render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
     features = torch.cat(feats, dim=-1)
     opac = torch.where(prep.visible, prep.opacity,
                        torch.zeros_like(prep.opacity))
+    # dead slots: log(OP_FLOOR) keeps them finite, and the clamp gives them
+    # an exact zero gradient
     log_op = torch.log(torch.clamp(opac, min=OP_FLOOR))
     packed, _ = pack_gaussian_rows(prep.mean2d, prep.conic, log_op, features)
-    blended, t_final = composite(packed, features.shape[-1],
-                                 binning.gauss_id, binning.tile_start,
-                                 binning.tile_count, settings.grid_x)
+    blended, t_final = CompositePacked.apply(
+        packed, binning, features.shape[-1], settings.grid_x, backend)
     blended = blended.transpose(1, 2)                   # [T, P, CH]
 
     color_t = blended[..., :3] + t_final[..., None] * settings.bg
@@ -195,24 +424,4 @@ def _render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
             blended[..., chc:chc + semantic.shape[-1]], settings)
     return RasterOutput(color=color, radii=prep.radii.to(torch.int32),
                         depth=depth, opacity=opacity, flow=flow_img,
-                        semantic=sem_img)
-
-
-@torch.no_grad()
-def render_cuda(prep: Preprocessed, binning: Binning,
-                settings: RasterSettings,
-                flow_points: Optional[torch.Tensor] = None,
-                semantic: Optional[torch.Tensor] = None) -> RasterOutput:
-    """Composite through kernel B3 (its plain twin on CPU tensors)."""
-    return _render(prep, binning, settings, flow_points, semantic,
-                   composite_fwd)
-
-
-@torch.no_grad()
-def render_torch(prep: Preprocessed, binning: Binning,
-                 settings: RasterSettings,
-                 flow_points: Optional[torch.Tensor] = None,
-                 semantic: Optional[torch.Tensor] = None) -> RasterOutput:
-    """Composite through the plain twin on any device."""
-    return _render(prep, binning, settings, flow_points, semantic,
-                   composite_fwd_torch)
+                        semantic=sem_img, num_rendered=binning.num_rendered)

@@ -55,3 +55,6 @@ class RasterOutput(NamedTuple):
     opacity: torch.Tensor             # [1, H, W] 1 - final T
     flow: Optional[torch.Tensor]      # [3, H, W]
     semantic: Optional[torch.Tensor]  # [S, H, W]
+    # 0-d int32 instance count of the binning (may exceed the capacity);
+    # the JAX step reads it from its separate binning program
+    num_rendered: Optional[torch.Tensor] = None

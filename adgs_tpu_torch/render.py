@@ -4,7 +4,9 @@
 Evaluates the temporal deformation at the camera's time, rasterizes with
 depth/opacity (and optional flow/semantic) targets, and composites the
 environment-map sky behind the splatted foreground via the accumulated
-opacity. Forward only (no autograd graph is kept).
+opacity. render() is differentiable (the training step takes its
+gradients, and dL/dmean2d through a zero `screen_offset`); the serving
+entry point make_staged_render_fn runs it under torch.no_grad().
 """
 
 from __future__ import annotations
@@ -66,10 +68,11 @@ def make_staged_render_fn(config: GaussianConfig,
                           render_objmask: bool = False):
     """The serving entry point: render() with its options bound. Returns
     fn(camera, params, state, env, cam_rays, stage_marks=None) -> render()
-    dict. The JAX entry point splits binning and rendering into two
-    compiled programs; run eagerly, one deform and one preprocess feed
-    both, so the port needs no split."""
+    dict, computed without an autograd graph. The JAX entry point splits
+    binning and rendering into two compiled programs; run eagerly, one
+    deform and one preprocess feed both, so the port needs no split."""
 
+    @torch.no_grad()
     def full(camera, params, state, env, cam_rays, stage_marks=None):
         return render(camera, params, state, config, env_map=env,
                       cam_rays=cam_rays, render_objmask=render_objmask,
@@ -80,7 +83,6 @@ def make_staged_render_fn(config: GaussianConfig,
     return full
 
 
-@torch.no_grad()
 def render(camera: Camera, params: GaussianParams, state: GaussianState,
            config: GaussianConfig,
            env_map: Optional[EnvironmentMap] = None,
@@ -88,11 +90,13 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
            flow_time: Optional[torch.Tensor] = None,
            render_objmask: bool = False,
            override_color: Optional[torch.Tensor] = None,
+           screen_offset: Optional[torch.Tensor] = None,
            active_sh_degree: Optional[int] = None,
            inv_depth: bool = True, scaling_modifier: float = 1.0,
            backend: Optional[str] = None, capacity: int = 1 << 18,
            stage_marks: Optional[list] = None) -> dict[str, Any]:
-    """stage_marks: a list to receive CUDA-event marks "start", "deform",
+    """screen_offset: [N, 2] zeros whose gradient is dL/dmean2d.
+    stage_marks: a list to receive CUDA-event marks "start", "deform",
     "preprocess", "binning", "compositing" and "sky" (adgs_tpu_torch._stages);
     None records nothing."""
     sh_degree = (active_sh_degree if active_sh_degree is not None
@@ -117,8 +121,9 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
         settings=settings,
         shs=pkg["shs"] if override_color is None else None,
         colors_precomp=override_color, flow_points=flow_points,
-        semantic=semantic, active_mask=state.alive, backend=backend,
-        capacity=capacity, stage_marks=stage_marks)
+        semantic=semantic, screen_offset=screen_offset,
+        active_mask=state.alive, backend=backend, capacity=capacity,
+        stage_marks=stage_marks)
 
     foreground = out.color
     if env_map is not None and cam_rays is not None:
@@ -140,6 +145,7 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
         "img_semantic": out.semantic,
         "radii": out.radii,
         "visibility_filter": out.radii > 0,
+        "num_rendered": out.num_rendered,
         "opacity": pkg["opacity"],
         **pkg,
     }

@@ -9,20 +9,34 @@ Phases (any failure exits non-zero before the last line is printed):
      parallel) and prints the build seconds and ptxas resource use;
   3. scene: the KITTI-75 model at full width (~1M Gaussians, 30% object
      Gaussians, log-scales shrunk by log(0.3)), a 1242x375 frame and a
-     3x8192x8192 sky grid, all made from --seed;
-  4. kernel parity at the slice's shapes, each kernel against its plain
+     3x8192x8192 sky grid, all made from --seed; for training also the
+     frame batch of bench.py's protocol and KNN groups (obj_capacity // 8
+     anchors of 8, scipy cKDTree over the alive object Gaussians);
+  4. kernel parity at the slices' shapes, each kernel against its plain
      PyTorch twin on the same inputs: B2 live compaction and B1 expansion
-     bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample 1e-6;
+     bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample 1e-6
+     (a served frame's inputs); on the training step's inputs with N(0,1)
+     cotangents, B4 compositing backward (rtol 1e-3, atol 1e-5
+     max|twin|), B5 segment sum on B4's rows and on the KNN gather's
+     sorted rows, and B8 sky scatter (1e-6 of max|twin|);
   5. the serving path: 8 requests through make_staged_render_fn
      (two camera poses, times spread over [0, 1]) with the launch counts
-     reset just before; every output finite, no overflow, every kernel
-     launched; one frame held to the "torch" backend at 1e-4;
-  6. times with CUDA events: ms per frame and ms per stage, both read from
-     events recorded inside the served requests themselves, a
-     torch.profiler view of one request (top device ops, device busy
-     share), and one JSON line ({"kernels": [...]}) with each kernel's
-     time, its plain twin's, its bound and, for B7, torch's own
-     grid_sample.
+     reset just before; every output finite, no overflow, every serving
+     kernel launched; one frame held to the "torch" backend at 1e-4;
+  6. the training path: 6 steps of make_train_step at full width
+     (OptimizationConfig() defaults, every loss term on, SH degree 3,
+     iteration 1000) with the launch counts reset just before; losses
+     finite, no overflow, all seven kernels launched; one step held to
+     the "torch" backend (logs 1e-4, gradients rtol 5e-3 atol 2e-5,
+     updated parameters as tests/test_torch_train.py, statistics); one
+     step run twice from the same inputs, every updated tensor bitwise;
+  7. times with CUDA events: ms per frame and per training step and ms
+     per stage, all read from events recorded inside the requests and
+     steps themselves, peak device memory, a torch.profiler view of one
+     request and one step (top device ops, device busy share), and one
+     JSON line ({"kernels": [...]}) with each kernel's launches on the
+     training path, its time, its plain twin's, its bound and, where one
+     PyTorch call computes the same function, that call's time.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -45,10 +59,18 @@ WIDTH, HEIGHT = 1242, 375
 FOCAL = 721.5377          # KITTI P2 focal length (px)
 N_GAUSS = 1_000_000
 ENV_RES = 8192
-FRAMES = 8                # requests served on the main path
+FRAMES = 8                # requests served on the serving path
+STEPS = 6                 # training steps on the training path
+ITERATION = 1000          # the step's iteration (bench.py's protocol)
+SCENE_EXTENT, CAMERAS_EXTENT = 20.0, 10.0   # bench.py's step arguments
+TRAIN_TIME = 0.5          # the training camera's time
 CAP_HEADROOM = 0.92       # instance capacity = num_rendered / 0.92
 HBM_BYTES_S = 3.35e12     # H100 SXM memory rate
 FP32_FLOP_S = 67e12       # H100 SXM f32 rate outside the tensor cores
+# f32 operations of a gated (instance, pixel) pair in B3 and B4: dx, dy,
+# power (9) and the power > 0 test; the exp and 1/255 test that some of
+# them also take are left out, so the bound stays a lower bound
+GATED_PAIR_OPS = 12
 # camera +z -> world +x: a horizon-looking pose (the sky on the equator)
 HORIZON = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], np.float64)
 
@@ -59,9 +81,18 @@ KERNELS = {
                    replaces="adgs_tpu/raster/pallas/expand.py:81"),
     "composite_fwd": dict(id="B3", source="adgs_tpu_torch/csrc/composite.cu",
                           replaces="adgs_tpu/raster/pallas/render.py:555"),
+    "composite_bwd": dict(id="B4",
+                          source="adgs_tpu_torch/csrc/composite_bwd.cu",
+                          replaces="adgs_tpu/raster/pallas/render.py:642"),
+    "segment_sum": dict(id="B5", source="adgs_tpu_torch/csrc/segment_sum.cu",
+                        replaces="adgs_tpu/raster/pallas/render.py:850"),
     "grid_sample": dict(id="B7", source="adgs_tpu_torch/csrc/grid_sample.cu",
                         replaces="adgs_tpu/ops/grid_sample.py:192"),
+    "grid_sample_bwd": dict(id="B8",
+                            source="adgs_tpu_torch/csrc/grid_sample_bwd.cu",
+                            replaces="adgs_tpu/ops/grid_sample.py:233"),
 }
+SERVING_KERNELS = ("compact_live", "expand", "composite_fwd", "grid_sample")
 
 
 def log(msg: str) -> None:
@@ -179,15 +210,14 @@ def check_close(name, got, want, atol, rtol=0.0) -> float:
 
 
 def kernel_phase(cfg, params, state, env, rays, cam, capacity):
-    """Each kernel against its plain twin at the slice's shapes; returns
-    per-kernel records (error, times, bound)."""
+    """B2, B1, B3 and B7 against their plain twins at a served frame's
+    shapes; returns per-kernel records (error, times, bound)."""
     import torch
     import torch.nn.functional as F
     from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
     from adgs_tpu_torch.raster import binning as bl
     from adgs_tpu_torch.raster import render as rl
     from adgs_tpu_torch.raster.composite import depth_feature
-    from adgs_tpu_torch.models.env_map import direction_to_angles
     from adgs_tpu_torch.ops import grid_sample as gs
 
     st, prep, binning = frame_inputs(cfg, params, state, cam, capacity)
@@ -258,14 +288,14 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
         ms=cuda_ms(lambda: rl.composite_fwd(*cargs), iters=20),
         plain_ms=cuda_ms(lambda: rl.composite_fwd_torch(*cargs), iters=2),
         bytes=packed.numel() * 4 + R * 4 + T * 8 + T * 5 * 256 * 4,
-        flops=int(pairs) * (16 + 2 * 4), library_ms=None,
-        pairs=int(pairs))
+        # per composited pair: 16 for power and alpha, 3 for T and its
+        # test, 1 for the weight, 2 ch for the blend
+        flops=(int(pairs.hit) * (20 + 2 * ch)
+               + int(pairs.gated) * GATED_PAIR_OPS),
+        library_ms=None, pairs=pairs)
 
     # B7: sky sample on the full grid at the frame's coords, 1e-6
-    world = rays @ cam.world_view[:3, :3].T
-    world = world / torch.linalg.vector_norm(world, dim=-1, keepdim=True)
-    ang = direction_to_angles(world)
-    coords = (ang * ang.new_tensor([1.0 / math.pi, 2.0 / math.pi])).contiguous()
+    coords = sky_coords(rays, cam)
     grid = env.grid
     sk = gs.grid_sample(grid, coords)
     sp = gs.grid_sample_torch(grid, coords)
@@ -290,8 +320,159 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
     return rec
 
 
+def sky_coords(rays, cam):
+    """[H, W, 2] env-map coords of the camera's rays (EnvironmentMap.color's
+    arithmetic)."""
+    import torch
+    from adgs_tpu_torch.models.env_map import direction_to_angles
+    world = rays @ cam.world_view[:3, :3].T
+    world = world / torch.linalg.vector_norm(world, dim=-1, keepdim=True)
+    ang = direction_to_angles(world)
+    return (ang * ang.new_tensor([1.0 / math.pi, 2.0 / math.pi])).contiguous()
+
+
+def segment_sum_record(label, rows, bounds, owner, use):
+    """B5 against its twin at 1e-6 of max|twin| (the twin sums in float64)
+    on rows [R, D] and bounds [n+1]; owner holds the segment of each row in
+    [bounds[0], bounds[n]), for index_add_. Returns the kernel's record."""
+    import torch
+    from adgs_tpu_torch.raster import render as rl
+    per = rl.segment_sum(rows, bounds)
+    per_p = rl.segment_sum_torch(rows, bounds)
+    scale = float(per_p.abs().max())
+    err = check_close(label, per, per_p, 1e-6 * scale, 1e-6)
+    n, D = bounds.shape[0] - 1, rows.shape[1]
+    lo, hi = int(bounds[0]), int(bounds[-1])
+    used = rows[lo:hi]
+    return dict(
+        max_abs_err=err, use=f"{use} [{hi - lo}, {D}] into {n} segments",
+        ms=cuda_ms(lambda: rl.segment_sum(rows, bounds), iters=20),
+        plain_ms=cuda_ms(lambda: rl.segment_sum_torch(rows, bounds), iters=5),
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (n, D), device=rows.device).index_add_(0, owner, used), iters=20),
+        bytes=((hi - lo) * D + n + 1 + n * D) * 4, flops=(hi - lo) * D)
+
+
+def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
+                          capacity, seed):
+    """B4, B5 and B8 against their plain twins on the training step's own
+    inputs (its camera, its ch=8 rows with the flow points at the batch's
+    flow time, its sky coords), with N(0,1) cotangents so that the rows
+    are O(1)."""
+    import torch
+    import torch.nn.functional as F
+    from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
+    from adgs_tpu_torch.raster import render as rl
+    from adgs_tpu_torch.raster.composite import depth_feature
+    from adgs_tpu_torch.ops import grid_sample as gs
+    from adgs_tpu_torch.train.losses import sorted_group_rows
+
+    st, prep, binning = frame_inputs(cfg, params, state, cam, capacity)
+    opac = torch.where(prep.visible, prep.opacity,
+                       torch.zeros_like(prep.opacity))
+    feats = torch.cat([prep.rgb, depth_feature(prep.depth, True)[:, None],
+                       deformed_xyz(params, cfg, batch.flow.time),
+                       obj_mask(params).float()[:, None]], -1)
+    packed, _ = rl.pack_gaussian_rows(
+        prep.mean2d, prep.conic, torch.log(torch.clamp(opac, min=rl.OP_FLOOR)),
+        feats)
+    grid = env.grid
+    coords = sky_coords(rays, cam)
+    gen = torch.Generator(device=grid.device).manual_seed(seed)
+
+    # B4: rtol 1e-3, atol 1e-5 max|twin| (the sums over a tile's 256
+    # pixels run in another order)
+    ch = 8
+    fargs = (packed, ch, binning.gauss_id, binning.tile_start,
+             binning.tile_count, st.grid_x)
+    blended, final_t = rl.composite_fwd(*fargs)
+    fwd_out = torch.cat([blended, final_t[:, None]], 1).contiguous()
+    g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
+    bargs = (packed, ch, binning.gauss_id, binning.slot_sorted,
+             binning.tile_start, binning.tile_count, st.grid_x, fwd_out, g_out)
+    rows = rl.composite_bwd(*bargs)
+    rows_p = rl.composite_bwd_torch(*bargs)
+    scale = float(rows_p.abs().max())
+    err = check_close("B4 composite_bwd rows", rows, rows_p, 1e-5 * scale,
+                      1e-3)
+    _, _, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True)
+    R, gc = rows.shape
+    nc = rl.N_GEOM_GRAD + ch
+    rec["composite_bwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: rl.composite_bwd(*bargs), iters=10),
+        plain_ms=cuda_ms(lambda: rl.composite_bwd_torch(*bargs), iters=2),
+        bytes=(packed.numel() + 2 * R + 2 * fwd_out.numel() + R * gc) * 4,
+        # per composited pair: ~36 for power, alpha, T and dL/dalpha, 2 ch
+        # for f.g, 14 + ch for the pixel's 6 + ch values, nc for their sum
+        flops=(int(pairs.hit) * (50 + 3 * ch + nc)
+               + int(pairs.gated) * GATED_PAIR_OPS),
+        library_ms=None, pairs=pairs)
+
+    # B5 on B4's rows: 1e-6 of max|twin| (the twin sums in float64)
+    bounds = rl.contiguous_bounds(binning.gauss_start, binning.num_rendered, R)
+    n = bounds.shape[0] - 1
+    owner = torch.repeat_interleave(
+        torch.arange(n, device=rows.device), (bounds[1:] - bounds[:-1]).long())
+    rec["segment_sum"] = segment_sum_record(
+        "B5 segment_sum on B4's rows", rows, bounds, owner,
+        "compositing backward: B4's presort rows")
+
+    # B5 on the KNN group gather's backward at the step's shape: both
+    # regularizers' columns, every anchor group
+    idx = state.obj_near_idx
+    n_obj = params.xyz_deform.shape[0]
+    D = params.xyz_deform[0].numel() + params.gs_time_sigma[0].numel()
+    d_g = torch.randn(tuple(idx.shape) + (D,), generator=gen,
+                      device=idx.device)
+    krows, ids, kbounds = sorted_group_rows(d_g, idx, n_obj)
+    rec["segment_sum_knn"] = segment_sum_record(
+        "B5 segment_sum on the KNN gather's rows", krows, kbounds, ids,
+        "KNN group gather backward: sorted group rows")
+    rec["segment_sum_knn"]["kernel"] = "segment_sum"
+    # its longest segment alone: one warp walks it serially (the groups
+    # past the valid anchors all point at value 0)
+    seg_len = kbounds[1:] - kbounds[:-1]
+    i = int(torch.argmax(seg_len))
+    one = kbounds[i:i + 2].contiguous()
+    alone_ms = cuda_ms(lambda: rl.segment_sum(krows, one), iters=20)
+    log(f"  B5 on the KNN rows: longest segment {int(seg_len[i])} rows "
+        f"(value {i}), alone {alone_ms:.4f} ms; median segment "
+        f"{int(seg_len.median())} rows")
+
+    # B8: 1e-6 of max|twin| (bitwise where the twin sums serially)
+    C = grid.shape[0]
+    g_sky = torch.randn((C,) + tuple(coords.shape[:-1]), generator=gen,
+                        device=grid.device)
+    shape = tuple(grid.shape)
+    d_grid = gs.grid_sample_bwd(g_sky, coords, shape)
+    d_plain = gs.grid_sample_bwd_torch(g_sky, coords, shape)
+    scale = float(d_plain.abs().max())
+    err = check_close("B8 grid_sample_bwd", d_grid, d_plain, 1e-6 * scale,
+                      1e-6)
+    leaf = grid.detach().clone().requires_grad_(True)
+    out = F.grid_sample(leaf[None], coords[None], align_corners=True,
+                        padding_mode="zeros")
+
+    def lib():
+        return torch.autograd.grad(out, leaf, g_sky[None], retain_graph=True)
+
+    check_close("B8 vs the grid gradient of torch grid_sample (yardstick)",
+                d_grid, lib()[0], 1e-4)
+    npix = coords.numel() // 2
+    rec["grid_sample_bwd"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: gs.grid_sample_bwd(g_sky, coords, shape), iters=10),
+        plain_ms=cuda_ms(lambda: gs.grid_sample_bwd_torch(g_sky, coords,
+                                                          shape), iters=3),
+        library_ms=cuda_ms(lib, iters=10),
+        # the gradient is dense: the whole grid is written once
+        bytes=npix * 8 + C * npix * 4 + grid.numel() * 4,
+        flops=4 * npix * (20 + 2 * C))
+
+
 def serve_phase(cfg, params, state, env, rays, reqs, capacity):
-    """The main path: every request through make_staged_render_fn, with
+    """The serving path: every request through make_staged_render_fn, with
     CUDA-event stage marks recorded inside each request. Returns the
     outputs, each request's marks (adgs_tpu_torch._stages) and the launch
     counts."""
@@ -328,8 +509,199 @@ def check_outputs(outs, reqs, width, height):
             raise AssertionError(f"frame {i}: the scene is not on screen")
 
 
-def profile_request(fn, args, top: int = 12) -> None:
-    """torch.profiler over one request: the kernels with the most device
+def train_inputs(device, seed, params, state, width, height):
+    """bench.py's frame batch (uniform image, depth of ones, sky of zeros,
+    30% object pixels, a uniform flow target at time 0.35) and the KNN
+    groups of its regularizer variant: obj_capacity // 8 anchors of 8
+    neighbours among the alive object Gaussians (scipy cKDTree, as
+    adgs_tpu/ops/knn.py:knn_indices). Returns (batch, state)."""
+    import dataclasses
+    import torch
+    from scipy.spatial import cKDTree
+    from adgs_tpu_torch.ops.flow import FlowPackage
+    from adgs_tpu_torch.train.losses import FrameBatch
+
+    rng = np.random.default_rng(seed + 1)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    fx = 0.5 * width / np.tan(0.6)
+    K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1]])
+    batch = FrameBatch(
+        image=t(rng.uniform(size=(3, height, width))),
+        depth=t(np.ones((height, width))), sky=t(np.zeros((height, width))),
+        semantic=t(rng.random((height, width)) < 0.3),
+        flow=FlowPackage(time=t(0.35), K=t(K), R=t(np.eye(3)),
+                         T=t(np.zeros(3)),
+                         flow=t(rng.uniform(size=(2, height, width)) * width),
+                         vis=t(np.ones((height, width)))),
+        flow_valid=torch.tensor(True, device=device))
+
+    k = 8
+    alive = state.obj_alive.cpu().numpy()
+    no = int(alive.sum())
+    assert alive[:no].all()        # alive object Gaussians come first
+    a_cap = max(1, params.obj_capacity // k)
+    n_anchor = min(max(no // k, 1), a_cap)
+    pts = params.obj_xyz[:no].cpu().numpy().astype(np.float64)
+    anchors = rng.choice(no, n_anchor, replace=False)
+    _, idx = cKDTree(pts).query(pts[anchors], k=k, workers=-1)
+    near = np.zeros((a_cap, k), np.int32)
+    near[:n_anchor] = idx
+    state = dataclasses.replace(
+        state, obj_near_idx=torch.as_tensor(near, device=device),
+        obj_near_valid=torch.as_tensor(np.arange(a_cap) < n_anchor,
+                                       device=device))
+    return batch, state
+
+
+def make_step(cfg, capacity, backend=None):
+    from adgs_tpu_torch.train.config import OptimizationConfig
+    from adgs_tpu_torch.train.step import make_train_step
+    return make_train_step(cfg, OptimizationConfig(),
+                           frame_gap=1.0 / FRAME_NUM,
+                           scene_extent=SCENE_EXTENT,
+                           cameras_extent=CAMERAS_EXTENT, capacity=capacity,
+                           backend=backend)
+
+
+def train_phase(step, start, cam, batch, rays):
+    """The training path: STEPS steps from `start` (params, env, opt_state,
+    state), each with CUDA-event stage marks recorded inside it. Returns
+    each step's logs and marks and the launch counts."""
+    import torch
+    from adgs_tpu_torch import _kernels
+
+    step(*start, cam, batch, rays, ITERATION)     # warm-up (allocator)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    p, e, o, s = start
+    logs, marks = [], []
+    for _ in range(STEPS):
+        m = []
+        p, e, o, s, lg = step(p, e, o, s, cam, batch, rays, ITERATION,
+                              stage_marks=m)
+        logs.append(lg)
+        marks.append(m)
+    torch.cuda.synchronize()
+    return logs, marks, dict(_kernels.launches)
+
+
+def check_train_logs(logs, capacity):
+    import torch
+    for i, lg in enumerate(logs):
+        for k, v in lg.items():
+            if k != "num_rendered" and not bool(torch.isfinite(v)):
+                raise AssertionError(f"step {i}: {k} = {float(v)}")
+        if int(lg["num_rendered"]) > capacity:
+            raise AssertionError(f"step {i}: instance overflow "
+                                 f"({int(lg['num_rendered'])} > {capacity})")
+
+
+def _named_leaves(tr):
+    import dataclasses
+    from adgs_tpu_torch.train.optim import leaves
+    names = [f.name for f in dataclasses.fields(tr.gaussians)] + ["env"]
+    return list(zip(names, leaves(tr)))
+
+
+def check_torch_backend(step, step_t, start, cam, batch, rays):
+    """One step from `start` through the kernels and through the plain
+    twins, held to tests/test_torch_train.py's bars."""
+    import torch
+    from adgs_tpu_torch.train.config import OptimizationConfig
+    from adgs_tpu_torch.train.optim import TrainableState, leaves, lr_tree
+
+    p, e, o, s = start
+    args = (p, e, s, cam, batch, rays)
+    lg_k = step.loss_and_grads(*args)
+    lg_t = step_t.loss_and_grads(*args)
+    for k in lg_k.logs:
+        check_close(f"train {k} vs the torch backend", lg_k.logs[k],
+                    lg_t.logs[k], 0.0, 1e-4)
+    if not torch.equal(lg_k.num_rendered, lg_t.num_rendered):
+        raise AssertionError("num_rendered disagrees with the torch backend")
+    for (name, gk), (_, gt) in zip(_named_leaves(lg_k.grads),
+                                   _named_leaves(lg_t.grads)):
+        check_close(f"train grad {name} vs the torch backend", gk, gt,
+                    2e-5, 5e-3)
+    out_k = step(p, e, o, s, cam, batch, rays, ITERATION)
+    out_t = step_t(p, e, o, s, cam, batch, rays, ITERATION)
+    # Adam's first step is lr * g / |g|: where the gradient is rounding
+    # noise its sign may flip and the parameter move by 2 lr
+    lrs = leaves(lr_tree(OptimizationConfig(), SCENE_EXTENT, CAMERAS_EXTENT,
+                         ITERATION))
+    worst = 0.0
+    for (name, pk), (_, pt), (_, gt), lr in zip(
+            _named_leaves(TrainableState(out_k[0], out_k[1])),
+            _named_leaves(TrainableState(out_t[0], out_t[1])),
+            _named_leaves(lg_t.grads), lrs):
+        bound = torch.where(gt.abs() < 2e-5, 2.0 * float(lr) + 1e-5,
+                            torch.full_like(gt, 1e-5))
+        diff = (pk - pt).abs()
+        worst = max(worst, float(diff.max()))
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"updated {name} disagrees with the torch "
+                                 f"backend: max |diff| {float(diff.max())}")
+    log(f"  updated parameters vs the torch backend: max |diff| {worst:.3e} "
+        "(atol 1e-5, 2 lr where |g| < 2e-5) ok")
+    sk, st_ = out_k[3], out_t[3]
+    for name in ("denom", "max_radii2d"):
+        same = bool(torch.equal(getattr(sk, name), getattr(st_, name)))
+        log(f"  stats {name} vs the torch backend: "
+            f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{name} disagrees with the torch backend")
+    check_close("stats xyz_grad_accum vs the torch backend",
+                sk.xyz_grad_accum, st_.xyz_grad_accum, 2e-5, 5e-3)
+    return out_k
+
+
+def check_repeat(step, start, cam, batch, rays, first):
+    """The same step again from the same inputs: every updated tensor must
+    be bitwise equal (B4, B5, B8 and the regularizer's backward use no
+    atomics). Returns the number of tensors compared."""
+    import dataclasses
+    import torch
+    from adgs_tpu_torch.train.optim import TrainableState
+
+    again = step(*start, cam, batch, rays, ITERATION)
+
+    def tensors(out):
+        p, e, o, s = out[:4]
+        named = _named_leaves(TrainableState(p, e))
+        named += [("m." + n, t) for n, t in _named_leaves(o.m)]
+        named += [("v." + n, t) for n, t in _named_leaves(o.v)]
+        named += [("state." + f.name, getattr(s, f.name))
+                  for f in dataclasses.fields(s)]
+        return named
+
+    differ = []
+    pairs = list(zip(tensors(first), tensors(again)))
+    for (name, a), (_, b) in pairs:
+        if not torch.equal(a, b):
+            differ.append(f"{name} (max |diff| "
+                          f"{float((a.float() - b.float()).abs().max()):.3e})")
+    log(f"  repeat step: {len(pairs)} updated tensors, "
+        f"{len(pairs) - len(differ)} bitwise equal"
+        + (f"; differ: {', '.join(differ)}" if differ else ""))
+    # the one op on the path that PyTorch documents as nondeterministic on
+    # CUDA: index_add_, the backward of the splines' index_select (it adds
+    # to distinct control points); the tensors it feeds are among those
+    fed = ("xyz_deform", "rotation_deform", "background_deform",
+           "scene_shs_deform", "obj_shs_deform")
+    log("  index_add_ (index_select's backward in the splines, documented "
+        "nondeterministic on CUDA), difference of what it feeds: "
+        + ", ".join(f"{n} {'DIFFERS' if any(n in d for d in differ) else 0}"
+                    for n in fed))
+    if differ:
+        raise AssertionError("a repeated step is not bitwise reproducible")
+    return len(pairs)
+
+
+def profile_call(label, fn, args, top: int = 12) -> None:
+    """torch.profiler over one call: the kernels with the most device
     time, and the device's busy share of the (profiled) wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -351,16 +723,42 @@ def profile_request(fn, args, top: int = 12) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and getattr(e, attr) > 0]
     if not kernels:
-        log("# profile: the profiler recorded no device time")
+        log(f"# profile of {label}: the profiler recorded no device time")
         return
     busy_ms = sum(getattr(e, attr) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
-    log(f"# profile of one request: wall {wall_ms:.3f} ms under the "
-        f"profiler, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
-        f"%), {n_kernels} device kernels")
+    log(f"# profile of {label}: wall {wall_ms:.3f} ms under the profiler, "
+        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{n_kernels} device kernels")
     for e in sorted(kernels, key=lambda e: -getattr(e, attr))[:top]:
         log(f"#   {getattr(e, attr) / 1e3:9.3f} ms  x{e.count:<4d} "
             f"{e.key[:100]}")
+
+
+def report_marks(what, marks) -> float:
+    """Log the median ms per call (first mark to last) and the median ms
+    per stage; returns the median."""
+    from adgs_tpu_torch._stages import stage_ms
+    per = [m[0][1].elapsed_time(m[-1][1]) for m in marks]
+    span = marks[0][0][1].elapsed_time(marks[-1][-1][1])
+    med = float(np.median(per))
+    log(f"# ms per {what} (CUDA events from each call's first mark to its "
+        f"last, calls enqueued back to back): median {med:.3f}, all "
+        f"{[round(x, 3) for x in per]}; {len(marks)} in {span:.3f} ms "
+        f"({span / len(marks):.3f} ms each)")
+    stages = [stage_ms(m) for m in marks]
+    med_stage = {k: float(np.median([st[k] for st in stages]))
+                 for k in stages[0]}
+    log(f"# ms per stage of a {what} (median over calls): "
+        + json.dumps({k: round(v, 4) for k, v in med_stage.items()}))
+    return med
+
+
+def check_launched(path, launches, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path} path")
 
 
 def main(argv=None) -> int:
@@ -374,8 +772,8 @@ def main(argv=None) -> int:
         return 1
     import adgs_tpu_torch  # noqa: F401  (fails outside a checkout)
     from adgs_tpu_torch import _kernels
-    from adgs_tpu_torch._stages import stage_ms
-    from adgs_tpu_torch.render import compute_binning, make_staged_render_fn
+    from adgs_tpu_torch.render import make_staged_render_fn
+    from adgs_tpu_torch.train.optim import TrainableState, init_adam
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -400,73 +798,99 @@ def main(argv=None) -> int:
     cfg, params, state, env, rays, cams = build_scene(
         dev, args.seed, N_GAUSS, WIDTH, HEIGHT, ENV_RES)
     reqs = requests(cams, FRAMES)
-    capacity, nr = size_capacity(cfg, params, state, reqs)
+    train_cam = cams[0].at_time(TRAIN_TIME)
+    capacity, nr = size_capacity(cfg, params, state, reqs + [train_cam])
+    batch, train_state = train_inputs(dev, args.seed, params, state, WIDTH,
+                                      HEIGHT)
     n_alive = int(state.alive.sum())
     log(f"# scene: {params.capacity} slots ({n_alive} alive, "
         f"{int(state.obj_alive.sum())} object), frame {WIDTH}x{HEIGHT}, "
         f"sky {tuple(env.grid.shape)}, max num_rendered {nr}, capacity "
-        f"{capacity}, built in {time.perf_counter() - t0:.1f} s")
+        f"{capacity}, {int(train_state.obj_near_valid.sum())} KNN groups of "
+        f"{train_state.obj_near_idx.shape[1]}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
 
-    # 4. kernel parity at the slice's shapes
+    # 4. kernel parity at the slices' shapes
     log("# kernel parity")
     rec = kernel_phase(cfg, params, state, env, rays, reqs[0], capacity)
+    backward_kernel_phase(rec, cfg, params, train_state, env, rays,
+                          train_cam, batch, capacity, args.seed)
 
     # 5. the serving path
     torch.cuda.reset_peak_memory_stats()
-    outs, marks, launches = serve_phase(cfg, params, state, env, rays, reqs,
-                                        capacity)
-    log(f"# served {len(outs)} frames; launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    for i, cam in enumerate(reqs):
-        # overflow is read from a fresh binning of the same request
-        b = compute_binning(cam, params, state, cfg, capacity=capacity)
-        if bool(b.overflow):
+    outs, marks, serve_launches = serve_phase(cfg, params, state, env, rays,
+                                              reqs, capacity)
+    log(f"# served {len(outs)} frames; launches {serve_launches}")
+    check_launched("serving", serve_launches, SERVING_KERNELS)
+    for i, out in enumerate(outs):
+        if int(out["num_rendered"]) > capacity:
             raise AssertionError(f"frame {i}: instance overflow "
-                                 f"({int(b.num_rendered)} > {capacity})")
+                                 f"({int(out['num_rendered'])} > {capacity})")
     check_outputs(outs, reqs, WIDTH, HEIGHT)
     plain = make_staged_render_fn(cfg, capacity=capacity, backend="torch")(
         reqs[0], params, state, env, rays)
     for k in ("render", "foreground", "background", "depth", "img_opacity"):
         check_close(f"frame 0 {k} vs the torch backend", outs[0][k],
                     plain[k], 1e-4, 1e-4)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del outs, plain
 
-    # 6. times
-    frame_ms = [m[0][1].elapsed_time(m[-1][1]) for m in marks]
-    span_ms = marks[0][0][1].elapsed_time(marks[-1][-1][1])
-    log(f"# ms per frame (CUDA events from each request's first mark to its "
-        f"last, requests enqueued back to back): median "
-        f"{float(np.median(frame_ms)):.3f}, all "
-        f"{[round(x, 3) for x in frame_ms]}; {len(marks)} requests in "
-        f"{span_ms:.3f} ms ({span_ms / len(marks):.3f} ms each); peak "
-        f"device memory {peak_gb:.2f} GB")
-    stages = [stage_ms(m) for m in marks]
-    mean_stage = {k: float(np.mean([s[k] for s in stages]))
-                  for k in stages[0]}
-    log("# ms per stage (CUDA events in render(), mean over requests): "
-        + json.dumps({k: round(v, 4) for k, v in mean_stage.items()}))
-    profile_request(make_staged_render_fn(cfg, capacity=capacity),
-                    (reqs[1], params, state, env, rays))
+    # 6. the training path
+    step = make_step(cfg, capacity)
+    start = (params, env, init_adam(TrainableState(params, env)),
+             train_state)
+    torch.cuda.reset_peak_memory_stats()
+    logs, train_marks, launches = train_phase(step, start, train_cam, batch,
+                                              rays)
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"# trained {len(logs)} steps; launches {launches}")
+    check_launched("training", launches, KERNELS)
+    check_train_logs(logs, capacity)
+    log("# losses per step: " + json.dumps(
+        [round(float(lg["total_loss"]), 6) for lg in logs]) + "; last "
+        + json.dumps({k: round(float(v), 6) for k, v in logs[-1].items()}))
+    first = check_torch_backend(step, make_step(cfg, capacity, "torch"),
+                                start, train_cam, batch, rays)
+    check_repeat(step, start, train_cam, batch, rays, first)
+    del first
+
+    # 7. times
+    report_marks("frame", marks)
+    log(f"# peak device memory: serving {serve_peak_gb:.2f} GB, training "
+        f"{train_peak_gb:.2f} GB")
+    report_marks("training step", train_marks)
+    profile_call("one request", make_staged_render_fn(cfg, capacity=capacity),
+                 (reqs[1], params, state, env, rays))
+    profile_call("one training step", step,
+                 start + (train_cam, batch, rays, ITERATION))
     kernels = []
-    for name, meta in KERNELS.items():
-        r = rec[name]
+    # one entry per record; B5 has two, one for each set of rows it sums
+    for key, r in rec.items():
+        name = r.get("kernel", key)
+        meta = KERNELS[name]
         t_bytes = r["bytes"] / HBM_BYTES_S * 1e3
         t_ops = r["flops"] / FP32_FLOP_S * 1e3
         entry = dict(
             name=name, id=meta["id"], route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
+            serve_launches=serve_launches[name],
             max_abs_err=r["max_abs_err"], max_abs_diff=r["max_abs_err"],
             ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=r["library_ms"])
+        if "use" in r:
+            entry["use"] = r["use"]
         kernels.append(entry)
-    log(f"# B3 (instance, pixel) pairs evaluated: "
-        f"{rec['composite_fwd']['pairs']}; B7 distinct tapped cells: "
-        f"{rec['grid_sample']['distinct_cells']}")
+    missing = set(KERNELS) - {k["name"] for k in kernels}
+    if missing:
+        raise AssertionError(f"no parity record for {sorted(missing)}")
+    for key, what in (("composite_fwd", "B3 pairs evaluated at ch=4"),
+                      ("composite_bwd", "B4 pairs replayed at ch=8")):
+        pairs = rec[key]["pairs"]
+        log(f"# {what}: {int(pairs.hit)} composited, {int(pairs.gated)} "
+            f"gated or stopping")
+    log(f"# B7 distinct tapped cells: {rec['grid_sample']['distinct_cells']}")
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

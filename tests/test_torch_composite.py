@@ -72,8 +72,9 @@ def test_plain_matches_pallas_and_reference(rng, extra):
     ps = port_settings(js)
     tflow = None if flow is None else _t(flow)
     tsem = None if sem is None else _t(sem)
-    for render in (trender.render_torch, trender.render_cuda):
-        out = render(tprep, tb, ps, flow_points=tflow, semantic=tsem)
+    for backend in ("torch", "cuda"):
+        out = trender.render(tprep, tb, ps, flow_points=tflow, semantic=tsem,
+                             backend=backend)
         _compare(out, pal, names)
         _compare(out, ref, names)
     np.testing.assert_array_equal(out.radii.numpy(), np.asarray(pal.radii))
@@ -82,18 +83,19 @@ def test_plain_matches_pallas_and_reference(rng, extra):
 def test_saturated_early_exit(rng):
     js, jp, jb, tprep, tb = _case(rng, saturated=True)
     pal = jpal.render_pallas(jp, jb, js)
-    out = trender.render_torch(tprep, tb, port_settings(js))
+    out = trender.render(tprep, tb, port_settings(js), backend="torch")
     _compare(out, pal, ["color", "opacity", "depth"])
     # the termination gate really fired: the loop skipped instances
     _, _, pairs = trender.composite_fwd_torch(
         _packed(tprep), 4, tb.gauss_id, tb.tile_start, tb.tile_count,
         js.grid_x, count_pairs=True)
-    assert int(pairs) < 0.9 * 256 * int(tb.tile_count.sum())
+    assert int(pairs.hit + pairs.gated) < 0.9 * 256 * int(tb.tile_count.sum())
 
 
 def test_pair_count_and_batching(rng, monkeypatch):
-    """Tile batching does not change the result; the pair count equals a
-    direct per-pixel walk of the sequential loop."""
+    """Tile batching does not change the result; the pair counts (all
+    evaluated, and composited) equal a direct per-pixel walk of the
+    sequential loop."""
     js, jp, jb, tprep, tb = _case(rng)
     F_rows = _packed(tprep)
     args = (F_rows, 4, tb.gauss_id, tb.tile_start, tb.tile_count, js.grid_x)
@@ -108,7 +110,7 @@ def test_pair_count_and_batching(rng, monkeypatch):
     rows = F_rows.numpy().astype(np.float64)
     gid = tb.gauss_id.numpy()
     p = np.arange(256)
-    want = 0
+    want = want_hit = 0
     for tile in range(js.num_tiles):
         s, c = int(tb.tile_start[tile]), int(tb.tile_count[tile])
         px = (tile % js.grid_x) * 16 + p % 16
@@ -124,6 +126,9 @@ def test_pair_count_and_batching(rng, monkeypatch):
             a = np.minimum(0.99, np.exp(np.minimum(r[5] + power, 0.0)))
             hit = live & (power <= 0) & (a >= 1 / 255)
             stop = hit & (T * (1 - a) < 1e-4)
+            want_hit += int((hit & ~stop).sum())
             live &= ~stop
             T = np.where(hit & ~stop, T * (1 - a), T)
-    assert int(pairs) == want
+    assert int(pairs.hit + pairs.gated) == want
+    assert int(pairs.hit) == want_hit
+    assert 0 < want_hit < want

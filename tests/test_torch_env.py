@@ -1,9 +1,11 @@
 """The plain twin of kernel B7 and the environment map against the JAX
 package: the blocked Pallas sample (interpret mode, 256^2 grid) and the
 generic align_corners sample, with coords off the grid too (1e-6 abs);
-image_background (1e-5)."""
+image_background (1e-5); and the sky backward (the plain twin of B8)
+against the JAX package's VJPs."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -92,3 +94,45 @@ def test_create_matches():
     j = jenv.EnvironmentMap.create(32, seed=5)
     t = tenv.EnvironmentMap.create(32, seed=5, device="cpu")
     np.testing.assert_array_equal(t.grid.numpy(), np.asarray(j.grid))
+
+
+def _sky_grad_port(grid, coords, g):
+    t = torch.as_tensor(grid).requires_grad_(True)
+    out = tgs.GridSample.apply(t, torch.as_tensor(coords), "cuda")
+    (d,) = torch.autograd.grad((out * torch.as_tensor(g)).sum(), t)
+    return d.numpy()
+
+
+@pytest.mark.parametrize("path", ["generic", "blocked"])
+def test_sky_grad_matches_jax(rng, path):
+    """The grid gradient through the port's sky Function (the plain twin of
+    B8 on CPU tensors) against the JAX package's backward: the flat scatter
+    of _grid_sample_bwd (40^2 grid) and grid_sample_image's VJP (256^2 grid,
+    interpret mode), with taps off the grid in both (1e-5 rel, 1e-6 abs,
+    as tests/test_grid_sample.py)."""
+    if path == "generic":
+        grid = _grid(rng, r=40)
+        coords = _coords(rng, 24, 30, -1.3, 1.3)
+        fn = jenv._grid_sample_align_corners
+    else:
+        grid = _grid(rng)
+        h, w = 24, 64
+        ys, xs = np.meshgrid(np.linspace(-0.2, 0.2, h),
+                             np.linspace(-0.3, 0.3, w), indexing="ij")
+        coords = np.stack([xs, ys], -1).astype(np.float32)
+        coords[0, :8] = [[1.0 + 0.004 * k, 0.1] for k in range(8)]
+        fn = jgs.grid_sample_image
+    g = rng.normal(size=(3,) + coords.shape[:2]).astype(np.float32)
+    _, vjp = jax.vjp(lambda gr: fn(gr, jnp.asarray(coords)), jnp.asarray(grid))
+    (want,) = vjp(jnp.asarray(g))
+    got = _sky_grad_port(grid, coords, g)
+    assert np.abs(got).max() > 0.1
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    # the twin on its own, and no gradient for the coordinates
+    np.testing.assert_array_equal(
+        tgs.grid_sample_bwd(torch.as_tensor(g), torch.as_tensor(coords),
+                            grid.shape).numpy(), got)
+    c = torch.as_tensor(coords).requires_grad_(True)
+    out = tgs.GridSample.apply(torch.as_tensor(grid), c, "cuda")
+    (dc,) = torch.autograd.grad(out.sum(), c, allow_unused=True)
+    assert dc is None

@@ -66,6 +66,31 @@ def test_render_matches_jax(rng, t):
                                   port["render"].numpy())
 
 
+def test_served_frame_holds_no_graph(rng):
+    """make_staged_render_fn serves under torch.no_grad(): with every
+    weight requiring a gradient, no output of a served frame holds an
+    autograd graph, while render() itself builds one (for training)."""
+    cfg_j, params, state = _jax_model(rng, n=300)
+    cfg, tp, ts = _port_model(cfg_j, params, state)
+    tp = dataclasses.replace(tp, **{
+        f.name: getattr(tp, f.name).requires_grad_(True)
+        for f in dataclasses.fields(tp)})
+    tenv = convert.env_from_numpy(rng.normal(size=(3, 32, 32)), device="cpu")
+    tenv.grid.requires_grad_(True)
+    kw = dict(R=M, T=np.array([0.0, 0.0, 4.0]), fovx=1.2, fovy=0.9,
+              width=32, height=24, time=0.4)
+    tcam = TCamera.create(device="cpu", **kw)
+    rays = torch.as_tensor(camera_rays(tcam.focal_x, 24, 32))
+    served = trender.make_staged_render_fn(cfg, capacity=1 << 14)(
+        tcam, tp, ts, tenv, rays)
+    tensors = {k: v for k, v in served.items() if torch.is_tensor(v)}
+    assert "render" in tensors
+    assert not any(v.requires_grad for v in tensors.values())
+    trained = trender.render(tcam, tp, ts, cfg, env_map=tenv, cam_rays=rays,
+                             capacity=1 << 14)
+    assert trained["render"].requires_grad
+
+
 def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
