@@ -3,7 +3,8 @@
 Each source is compiled on first use by `nvcc` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), named by a hash of the source and of the shared headers
-(csrc/*.cuh) and loaded with ctypes. Every C
+(csrc/*.cuh) and loaded with ctypes; kernels that share a source share
+its library. Every C
 entry point launches on the stream it is given and returns
 cudaGetLastError(); `check` raises when that is not 0.
 
@@ -34,8 +35,11 @@ SOURCES = {
     "composite_fwd": "composite.cu",
     "composite_bwd": "composite_bwd.cu",
     "segment_sum": "segment_sum.cu",
+    "pad_lanes": "pad_lanes.cu",
     "grid_sample": "grid_sample.cu",
     "grid_sample_bwd": "grid_sample_bwd.cu",
+    "lab_cm": "lab_rowmajor.cu",
+    "lab_rm": "lab_rowmajor.cu",
 }
 
 launches = {name: 0 for name in SOURCES}
@@ -58,18 +62,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1((CSRC / SOURCES[name]).read_bytes())
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha1((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
 
-def _start_build(name: str):
-    """Start nvcc for one kernel unless its library is already built.
+def _start_build(source: str):
+    """Start nvcc for one source unless its library is already built.
     Returns (process, temporary output, final path, log path) or None."""
-    out = _lib_path(name)
+    out = _lib_path(source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,7 +81,7 @@ def _start_build(name: str):
     log = out.with_suffix(".log")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(CSRC / SOURCES[name])]
+           "-o", str(tmp), str(CSRC / source)]
     logf = open(log, "w")
     try:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
@@ -86,40 +90,41 @@ def _start_build(name: str):
     return proc, tmp, out, log
 
 
-def _finish_build(name: str, job) -> None:
+def _finish_build(source: str, job) -> None:
     proc, tmp, out, log = job
     if proc.wait() != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n"
-                           + log.read_text())
+        raise RuntimeError(f"nvcc failed for {source}:\n" + log.read_text())
     os.replace(tmp, out)
 
 
 def build_all() -> float:
-    """Compile every kernel, one nvcc per source, all at once. Returns the
-    wall seconds taken (0 when everything was already built)."""
+    """Compile every source, one nvcc each, all at once. Returns the wall
+    seconds taken (0 when everything was already built)."""
     t0 = time.perf_counter()
-    jobs = {name: _start_build(name) for name in SOURCES}
-    for name, job in jobs.items():
+    jobs = {src: _start_build(src) for src in dict.fromkeys(SOURCES.values())}
+    for src, job in jobs.items():
         if job is not None:
-            _finish_build(name, job)
+            _finish_build(src, job)
     return time.perf_counter() - t0
 
 
-def build_log(name: str) -> str:
-    """The compiler's output (ptxas register and shared-memory use)."""
-    log = _lib_path(name).with_suffix(".log")
+def build_log(source: str) -> str:
+    """The compiler's output for one source (ptxas register and
+    shared-memory use)."""
+    log = _lib_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
-    lib = _libs.get(name)
+    source = SOURCES[name]
+    lib = _libs.get(source)
     if lib is None:
-        job = _start_build(name)
+        job = _start_build(source)
         if job is not None:
-            _finish_build(name, job)
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _libs[name] = lib
+            _finish_build(source, job)
+        lib = ctypes.CDLL(str(_lib_path(source)))
+        _libs[source] = lib
     return lib
 
 

@@ -26,6 +26,13 @@
 // A block-wide vote (__syncthreads_count) ends the tile once every pixel
 // has saturated. The gating arithmetic lives in composite_common.cuh, which
 // the backward (B4, composite_bwd.cu) replays bit for bit.
+//
+// Two instance layouts, chosen by the ROWS template flag (the JAX
+// package's ADGS_RM): "gather" reads instance i of a tile as row
+// gauss_id[start + i] of the packed [N, F] rows; "rows" reads it as row
+// start + i of the tile-ordered [R, 128] instance rows that B6 and one row
+// gather built (raster/render.py build_instances_rows). Only the staging
+// load differs, so both layouts give bitwise equal outputs.
 
 #include "composite_common.cuh"
 
@@ -34,9 +41,10 @@ namespace {
 using adgs::kGeom;
 using adgs::kPix;
 
-template <int CH>
+// ld: floats per row of `src` (F for "gather", 128 for "rows")
+template <int CH, bool ROWS>
 __global__ void __launch_bounds__(kPix)
-composite_fwd_kernel(const float* __restrict__ packed, int F,
+composite_fwd_kernel(const float* __restrict__ src, int ld,
                      const int32_t* __restrict__ gauss_id,
                      const int32_t* __restrict__ tile_start,
                      const int32_t* __restrict__ tile_count, int grid_x,
@@ -63,7 +71,7 @@ composite_fwd_kernel(const float* __restrict__ packed, int F,
     if (__syncthreads_count(done) == kPix) break;
     const int i = base + tid;
     if (i < count) {
-      const float* row = packed + (size_t)gauss_id[start + i] * F;
+      const float* row = adgs::instance_row<ROWS>(src, ld, gauss_id, start + i);
       const float4 g0 = reinterpret_cast<const float4*>(row)[0];
       const float4 g1 = reinterpret_cast<const float4*>(row)[1];
       s_mx[tid] = g0.x;
@@ -106,22 +114,29 @@ composite_fwd_kernel(const float* __restrict__ packed, int F,
 }
 
 template <int CH>
-void launch(const float* packed, int F, const int32_t* gauss_id,
+void launch(bool rows, const float* src, int ld, const int32_t* gauss_id,
             const int32_t* tile_start, const int32_t* tile_count,
             int num_tiles, int grid_x, float* out, cudaStream_t st) {
-  composite_fwd_kernel<CH><<<num_tiles, kPix, 0, st>>>(
-      packed, F, gauss_id, tile_start, tile_count, grid_x, out);
+  if (rows)
+    composite_fwd_kernel<CH, true><<<num_tiles, kPix, 0, st>>>(
+        src, ld, gauss_id, tile_start, tile_count, grid_x, out);
+  else
+    composite_fwd_kernel<CH, false><<<num_tiles, kPix, 0, st>>>(
+        src, ld, gauss_id, tile_start, tile_count, grid_x, out);
 }
 
 }  // namespace
 
-extern "C" int adgs_composite_fwd(const void* packed, int F,
+// rows = 0: src is the packed [N, ld] rows, read through gauss_id;
+// rows = 1: src is the tile-ordered [R, ld] instance rows.
+extern "C" int adgs_composite_fwd(const void* src, int ld, int rows,
                                   const void* gauss_id,
                                   const void* tile_start,
                                   const void* tile_count, int num_tiles,
                                   int grid_x, int ch, void* out,
                                   void* stream) {
-  const float* p = (const float*)packed;
+  const float* p = (const float*)src;
+  const bool rm = rows != 0;
   const int32_t* gi = (const int32_t*)gauss_id;
   const int32_t* ts = (const int32_t*)tile_start;
   const int32_t* tc = (const int32_t*)tile_count;
@@ -129,14 +144,14 @@ extern "C" int adgs_composite_fwd(const void* packed, int F,
   cudaStream_t st = (cudaStream_t)stream;
   if (num_tiles <= 0) return 0;
   switch (ch) {
-    case 1: launch<1>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 2: launch<2>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 3: launch<3>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 4: launch<4>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 5: launch<5>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 6: launch<6>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 7: launch<7>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
-    case 8: launch<8>(p, F, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 1: launch<1>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 2: launch<2>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 3: launch<3>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 4: launch<4>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 5: launch<5>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 6: launch<6>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 7: launch<7>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
+    case 8: launch<8>(rm, p, ld, gi, ts, tc, num_tiles, grid_x, o, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

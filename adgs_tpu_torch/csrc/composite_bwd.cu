@@ -36,6 +36,9 @@
 // no lane of the warp touched the instance), the 8 warp sums of 32
 // instances at a time go through shared memory, and the block writes each
 // touched instance's row once, in a fixed order: deterministic.
+//
+// The ROWS template flag picks the instance layout as in B3 (composite.cu):
+// only the staging load differs, so both layouts give bitwise equal rows.
 
 #include "composite_common.cuh"
 
@@ -54,9 +57,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int CH>
+// ld: floats per row of `src` (F for "gather", 128 for "rows")
+template <int CH, bool ROWS>
 __global__ void __launch_bounds__(kPix)
-composite_bwd_kernel(const float* __restrict__ packed, int F,
+composite_bwd_kernel(const float* __restrict__ src, int ld,
                      const int32_t* __restrict__ gauss_id,
                      const int32_t* __restrict__ slot_sorted,
                      const int32_t* __restrict__ tile_start,
@@ -102,7 +106,7 @@ composite_bwd_kernel(const float* __restrict__ packed, int F,
     if (__syncthreads_count(done) == kPix) break;
     const int i = base + tid;
     if (i < count) {
-      const float* row = packed + (size_t)gauss_id[start + i] * F;
+      const float* row = adgs::instance_row<ROWS>(src, ld, gauss_id, start + i);
       const float4 g0 = reinterpret_cast<const float4*>(row)[0];
       const float4 g1 = reinterpret_cast<const float4*>(row)[1];
       s_mx[tid] = g0.x;
@@ -195,46 +199,54 @@ composite_bwd_kernel(const float* __restrict__ packed, int F,
 }
 
 template <int CH>
-void launch(const float* packed, int F, const int32_t* gauss_id,
+void launch(bool rm, const float* src, int ld, const int32_t* gauss_id,
             const int32_t* slot_sorted, const int32_t* tile_start,
             const int32_t* tile_count, int num_tiles, int grid_x,
             const float* fwd_out, const float* g_out, int gc, float* rows,
             cudaStream_t st) {
-  composite_bwd_kernel<CH><<<num_tiles, kPix, 0, st>>>(
-      packed, F, gauss_id, slot_sorted, tile_start, tile_count, grid_x,
-      fwd_out, g_out, gc, rows);
+  if (rm)
+    composite_bwd_kernel<CH, true><<<num_tiles, kPix, 0, st>>>(
+        src, ld, gauss_id, slot_sorted, tile_start, tile_count, grid_x,
+        fwd_out, g_out, gc, rows);
+  else
+    composite_bwd_kernel<CH, false><<<num_tiles, kPix, 0, st>>>(
+        src, ld, gauss_id, slot_sorted, tile_start, tile_count, grid_x,
+        fwd_out, g_out, gc, rows);
 }
 
 }  // namespace
 
-extern "C" int adgs_composite_bwd(const void* packed, int F,
+// rows = 0: src is the packed [N, ld] rows, read through gauss_id;
+// rows = 1: src is the tile-ordered [R, ld] instance rows.
+extern "C" int adgs_composite_bwd(const void* src, int ld, int rows,
                                   const void* gauss_id,
                                   const void* slot_sorted,
                                   const void* tile_start,
                                   const void* tile_count, int num_tiles,
                                   int grid_x, int ch, const void* fwd_out,
-                                  const void* g_out, int gc, void* rows,
+                                  const void* g_out, int gc, void* out_rows,
                                   void* stream) {
-  const float* p = (const float*)packed;
+  const float* p = (const float*)src;
+  const bool rm = rows != 0;
   const int32_t* gi = (const int32_t*)gauss_id;
   const int32_t* ss = (const int32_t*)slot_sorted;
   const int32_t* ts = (const int32_t*)tile_start;
   const int32_t* tc = (const int32_t*)tile_count;
   const float* fo = (const float*)fwd_out;
   const float* go = (const float*)g_out;
-  float* r = (float*)rows;
+  float* r = (float*)out_rows;
   cudaStream_t st = (cudaStream_t)stream;
   if (num_tiles <= 0) return 0;
   if (gc < 6 + ch) return (int)cudaErrorInvalidValue;
   switch (ch) {
-    case 1: launch<1>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 2: launch<2>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 3: launch<3>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 4: launch<4>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 5: launch<5>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 6: launch<6>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 7: launch<7>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
-    case 8: launch<8>(p, F, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 1: launch<1>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 2: launch<2>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 3: launch<3>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 4: launch<4>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 5: launch<5>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 6: launch<6>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 7: launch<7>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
+    case 8: launch<8>(rm, p, ld, gi, ss, ts, tc, num_tiles, grid_x, fo, go, gc, r, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -44,6 +44,16 @@ __device__ __forceinline__ float splat_alpha(float log_opacity, float power,
   return alpha < kAlphaMin ? 0.0f : alpha;
 }
 
+// The staged row of sorted instance s (ld floats per row of src): the
+// "rows" layout reads row s of the tile-ordered instance rows, the
+// "gather" layout row gauss_id[s] of the packed per-Gaussian rows.
+template <bool ROWS>
+__device__ __forceinline__ const float* instance_row(
+    const float* __restrict__ src, int ld,
+    const int32_t* __restrict__ gauss_id, int s) {
+  return src + (size_t)(ROWS ? s : gauss_id[s]) * ld;
+}
+
 // transmittance after a pair of alpha; the pixel stops (and the pair is
 // not composited) when this is below kTEps
 __device__ __forceinline__ float next_t(float T, float alpha) {

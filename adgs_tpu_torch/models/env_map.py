@@ -34,6 +34,14 @@ def direction_to_angles(view: torch.Tensor) -> torch.Tensor:
     return torch.stack([az, el], dim=-1)
 
 
+def angles_to_direction(angles: torch.Tensor) -> torch.Tensor:
+    """(azimuth, elevation) -> unit direction (theta_to_vector)."""
+    az, el = angles[..., 0], angles[..., 1]
+    return torch.stack([torch.cos(az) * torch.cos(el),
+                        torch.sin(az) * torch.cos(el),
+                        torch.sin(el)], dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvironmentMap:
     grid: torch.Tensor  # [C, R, R]
@@ -47,15 +55,20 @@ class EnvironmentMap:
                         dtype=np.float32) * 2.0 - 1.0) * 1e-4
         return cls(grid=torch.as_tensor(g, device=resolve_device(device)))
 
-    def color(self, view: torch.Tensor, backend: str = "cuda") -> torch.Tensor:
-        """dirs [..., 3] -> sky colour [C, ...], differentiable with respect
-        to the grid (the rays are constants: they get no gradient).
+    def color(self, view: torch.Tensor, backend: str = "cuda",
+              input_angle: bool = False) -> torch.Tensor:
+        """dirs [..., 3] (or, with input_angle, (azimuth, elevation)
+        [..., 2]) -> sky colour [C, ...], differentiable with respect to
+        the grid (the rays are constants: they get no gradient).
         backend "cuda" samples with kernel B7 and takes the gradient with
         B8 (their twins on CPU tensors), "torch" with the twins on any
         device."""
-        view = view / torch.clamp(torch.linalg.vector_norm(
-            view, dim=-1, keepdim=True), min=1e-12)
-        angles = direction_to_angles(view)
+        if input_angle:
+            angles = view
+        else:
+            view = view / torch.clamp(torch.linalg.vector_norm(
+                view, dim=-1, keepdim=True), min=1e-12)
+            angles = direction_to_angles(view)
         coords = angles * angles.new_tensor([1.0 / math.pi, 2.0 / math.pi])
         if backend not in ("cuda", "torch"):
             raise ValueError(f"unknown backend: {backend}")

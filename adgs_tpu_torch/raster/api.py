@@ -4,6 +4,8 @@ Backends:
   - "cuda":  the hand-written kernels (default for CUDA tensors; on CPU
              tensors every kernel wrapper runs its plain twin);
   - "torch": the plain PyTorch twins on any device.
+Instance layouts: "gather" (default) or "rows", the JAX package's
+ADGS_RM=0/1 (raster/render.py).
 
 Differentiable with respect to the Gaussians' float inputs (and
 screen_offset). The binning is integer plumbing: it runs under
@@ -45,7 +47,8 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
               active_mask: Optional[torch.Tensor] = None,
               backend: Optional[str] = None,
               capacity: int = 1 << 18,
-              stage_marks: Optional[list] = None) -> RasterOutput:
+              stage_marks: Optional[list] = None,
+              layout: str = "gather") -> RasterOutput:
     """stage_marks: see adgs_tpu_torch._stages (marks "preprocess",
     "binning" and "compositing")."""
     if shs is None and colors_precomp is None:
@@ -61,6 +64,7 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
                                             backend=backend)
     mark(stage_marks, "binning")
     out = render_lib.render(prep, binning, settings, flow_points=flow_points,
-                            semantic=semantic, backend=backend)
+                            semantic=semantic, backend=backend,
+                            layout=layout)
     mark(stage_marks, "compositing")
     return out

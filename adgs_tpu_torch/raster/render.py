@@ -2,7 +2,7 @@
 adgs_tpu/raster/pallas/render.py: composite_packed, its VJP and
 render_pallas).
 
-Three kernels, each beside its plain twin; a wrapper launches the kernel
+Four kernels, each beside its plain twin; a wrapper launches the kernel
 on CUDA tensors and runs the twin on CPU tensors:
   - B3 `composite_fwd` (csrc/composite.cu) / `composite_fwd_torch`: packed
     per-Gaussian rows [N, F] (8 geometry columns: mean2d, conic,
@@ -13,9 +13,22 @@ on CUDA tensors and runs the twin on CPU tensors:
     its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch));
   - B5 `segment_sum` (csrc/segment_sum.cu) / `segment_sum_torch`: the sum
     of each segment of contiguous rows; `segment_reduce_contiguous` turns
-    B4's presort rows into per-Gaussian gradients.
+    B4's presort rows into per-Gaussian gradients;
+  - B6 `pad_to_lanes` (csrc/pad_lanes.cu) / `pad_to_lanes_torch`: the
+    [F, N] -> [N_pad, 128] transposing lane pad of the rows layout.
 `CompositePacked` is the autograd Function over them: B3 forward, B4 then
-B5 backward ("cuda"), or the three twins ("torch").
+B5 backward ("cuda"), or the twins ("torch").
+
+Instance layouts (`layout`, the JAX package's ADGS_RM=0/1):
+  - "gather": B3 and B4 read instance r of a tile through gauss_id from
+    the packed [N, F] rows;
+  - "rows": `build_instances_rows` lane-pads the packed rows with B6 and
+    gathers them once into tile order, [R, 128]; B3 and B4 read instance r
+    as row tile_start + r. The same values reach the same arithmetic, so
+    both layouts give bitwise equal outputs. The backward keeps B4's write
+    of each gradient row to its presort slot and B5 in both layouts (the
+    JAX package's 128-lane gradient rows and their permute serve its DMA
+    fast path and give the same values).
 """
 
 from __future__ import annotations
@@ -32,6 +45,9 @@ from .preprocess import Preprocessed
 from .types import RasterOutput, RasterSettings, TILE_PIX, TILE_X, TILE_Y
 
 F_GEOM = 8
+LANES = 128        # row width of the rows layout
+PAD_BLK = 1024     # B6 pads N up to a multiple of this (the JAX block)
+LAYOUTS = ("gather", "rows")
 N_GEOM_GRAD = 6    # d mean2d (2), d conic (3), d log-opacity
 OP_FLOOR = 1e-37   # log(max(op, OP_FLOOR)) keeps dead slots finite
 # plain twins: elements of one [tiles, 256, instances] temporary
@@ -92,19 +108,25 @@ class _TileBatch(NamedTuple):
     alpha: torch.Tensor     # [G, P, M] gated alpha (0 = skipped)
 
 
-def _tile_alpha(packed, gauss_id, tile_start, tile_count, lo: int, hi: int,
-                m: int, grid_x: int) -> _TileBatch:
+def _tile_alpha(src, F: int, gauss_id, tile_start, tile_count, lo: int,
+                hi: int, m: int, grid_x: int, layout: str) -> _TileBatch:
     """The gated alpha of every (instance, pixel) pair of tiles [lo, hi),
     with csrc/composite_common.cuh's expressions, one PyTorch op per
-    rounding."""
-    dev = packed.device
+    rounding. src is the packed [N, F] rows ("gather") or the tile-ordered
+    [R, 128] instance rows ("rows"); either way the instances' first F
+    columns are fetched into one fresh [G, M, F] tensor, so the two
+    layouts run the same arithmetic on the same values."""
+    dev = src.device
     R = gauss_id.shape[0]
     cnt = tile_count[lo:hi].long()
     t = torch.arange(lo, hi, device=dev)
     j = torch.arange(m, device=dev)
     in_range = j[None, :] < cnt[:, None]
     idx = torch.clamp(tile_start[lo:hi, None].long() + j[None, :], 0, R - 1)
-    rows = packed[gauss_id[idx].long()]
+    if layout == "rows":
+        rows = src[:, :F][idx]
+    else:
+        rows = src[gauss_id[idx].long()]
     pix = torch.arange(TILE_PIX, device=dev)
     px = (((t % grid_x) * TILE_X).to(torch.float32)[:, None]
           + (pix % TILE_X).to(torch.float32))
@@ -123,10 +145,17 @@ def _tile_alpha(packed, gauss_id, tile_start, tile_count, lo: int, hi: int,
     return _TileBatch(idx, in_range, rows, dx, dy, e, alpha)
 
 
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown instance layout: {layout}")
+
+
 def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
-                        grid_x: int, count_pairs: bool = False):
-    """Plain twin of kernel B3: every tile's whole instance list at once,
+                        grid_x: int, count_pairs: bool = False,
+                        layout: str = "gather"):
+    """Plain twin of kernel B3 (`packed` is the instance rows under
+    layout "rows"): every tile's whole instance list at once,
     alpha gated as in the kernel and weights from composite.blend_weights
     (log-space prefix sums instead of the kernel's running product, so the
     two agree to ~1e-5, not bitwise). Tiles run in batches bounded by
@@ -135,7 +164,9 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     count_pairs=True also returns the PairCounts of the pairs the
     sequential loop evaluates: each pixel's instances up to and including
     the one that ends it, split into composited and gated pairs."""
+    _check_layout(layout)
     T = tile_start.shape[0]
+    F = F_GEOM + _round8(ch)
     blended = packed.new_zeros((T, ch, TILE_PIX))
     final_t = packed.new_ones((T, TILE_PIX))
     hit = torch.zeros((), dtype=torch.int64, device=packed.device)
@@ -145,8 +176,8 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
         m = int(cnt.max()) if hi > lo else 0
         if m == 0:
             continue
-        tb = _tile_alpha(packed, gauss_id, tile_start, tile_count, lo, hi, m,
-                         grid_x)
+        tb = _tile_alpha(packed, F, gauss_id, tile_start, tile_count, lo, hi,
+                         m, grid_x, layout)
         bw = composite_mod.blend_weights(tb.alpha)
         feats = tb.rows[:, :, F_GEOM:F_GEOM + ch]                # [G, M, ch]
         blended[lo:hi] = torch.matmul(bw.weights, feats).transpose(1, 2)
@@ -163,18 +194,35 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     return blended, final_t
 
 
+def _kernel_src(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
+                layout: str, name: str) -> int:
+    """Check B3's / B4's row operand and return its row stride: the packed
+    [N, F] rows ("gather") or the [R, 128] instance rows ("rows")."""
+    _check_layout(layout)
+    F = F_GEOM + _round8(ch)
+    n, ld = packed.shape
+    if not 1 <= ch <= 8:
+        raise ValueError(f"{name}: ch={ch} unsupported")
+    if layout == "rows":
+        _kernels.require(packed, "inst", torch.float32,
+                         (gauss_id.shape[0], LANES))
+    else:
+        if ld != F:
+            raise ValueError(f"{name}: ch={ch} with F={ld} unsupported")
+        _kernels.require(packed, "packed", torch.float32, (n, F))
+    return ld
+
+
 def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  grid_x: int):
-    """Kernel B3 on CUDA tensors; its plain twin on CPU tensors."""
+                  grid_x: int, layout: str = "gather"):
+    """Kernel B3 on CUDA tensors; its plain twin on CPU tensors. `packed`
+    is the instance rows under layout "rows"."""
     if packed.device.type == "cpu":
         return composite_fwd_torch(packed, ch, gauss_id, tile_start,
-                                   tile_count, grid_x)
-    n, F = packed.shape
-    if not 1 <= ch <= 8 or F != F_GEOM + _round8(ch):
-        raise ValueError(f"composite_fwd: ch={ch} with F={F} unsupported")
+                                   tile_count, grid_x, layout=layout)
+    ld = _kernel_src(packed, ch, gauss_id, layout, "composite_fwd")
     T = tile_start.shape[0]
-    _kernels.require(packed, "packed", torch.float32, (n, F))
     _kernels.require(gauss_id, "gauss_id", torch.int32)
     _kernels.require(tile_start, "tile_start", torch.int32, (T,))
     _kernels.require(tile_count, "tile_count", torch.int32, (T,))
@@ -182,13 +230,14 @@ def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                       device=packed.device)
     fn = _kernels.library("composite_fwd").adgs_composite_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
     p = _kernels.ptr
-    err = fn(p(packed), F, p(gauss_id), p(tile_start), p(tile_count), T,
-             grid_x, ch, p(out), _kernels.stream(packed.device))
+    err = fn(p(packed), ld, int(layout == "rows"), p(gauss_id),
+             p(tile_start), p(tile_count), T, grid_x, ch, p(out),
+             _kernels.stream(packed.device))
     _kernels.check(err, "composite_fwd")
     _kernels.launches["composite_fwd"] += 1
     return out[:, :ch, :], out[:, ch, :]
@@ -198,21 +247,25 @@ def composite_bwd_torch(packed: torch.Tensor, ch: int,
                         gauss_id: torch.Tensor, slot_sorted: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         grid_x: int, fwd_out: torch.Tensor,
-                        g_out: torch.Tensor) -> torch.Tensor:
-    """Plain twin of kernel B4. fwd_out and g_out are [T, ch+1, 256]: the
+                        g_out: torch.Tensor,
+                        layout: str = "gather") -> torch.Tensor:
+    """Plain twin of kernel B4 (`packed` is the instance rows under layout
+    "rows"). fwd_out and g_out are [T, ch+1, 256]: the
     forward's blended channels and final T, and their cotangents. Returns
     [R, gc] gradient rows in presort order (csrc/composite_bwd.cu states
     the formulas); rows of instances that no pixel reached are zero. The
     replay is the forward twin's: log-space blend_weights."""
+    _check_layout(layout)
     R = gauss_id.shape[0]
+    F = F_GEOM + _round8(ch)
     gc = grad_cols(ch)
     out = packed.new_zeros((R, gc))
     for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
         m = int(tile_count[lo:hi].max()) if hi > lo else 0
         if m == 0:
             continue
-        tb = _tile_alpha(packed, gauss_id, tile_start, tile_count, lo, hi, m,
-                         grid_x)
+        tb = _tile_alpha(packed, F, gauss_id, tile_start, tile_count, lo, hi,
+                         m, grid_x, layout)
         alpha = tb.alpha
         bw = composite_mod.blend_weights(alpha)
         gf = g_out[lo:hi, :ch]                                   # [G, ch, P]
@@ -250,18 +303,17 @@ def composite_bwd_torch(packed: torch.Tensor, ch: int,
 def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                   slot_sorted: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, grid_x: int,
-                  fwd_out: torch.Tensor, g_out: torch.Tensor) -> torch.Tensor:
-    """Kernel B4 on CUDA tensors; its plain twin on CPU tensors."""
+                  fwd_out: torch.Tensor, g_out: torch.Tensor,
+                  layout: str = "gather") -> torch.Tensor:
+    """Kernel B4 on CUDA tensors; its plain twin on CPU tensors. `packed`
+    is the instance rows under layout "rows"."""
     if packed.device.type == "cpu":
         return composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
                                    tile_start, tile_count, grid_x, fwd_out,
-                                   g_out)
-    n, F = packed.shape
-    if not 1 <= ch <= 8 or F != F_GEOM + _round8(ch):
-        raise ValueError(f"composite_bwd: ch={ch} with F={F} unsupported")
+                                   g_out, layout=layout)
+    ld = _kernel_src(packed, ch, gauss_id, layout, "composite_bwd")
     T = tile_start.shape[0]
     R = gauss_id.shape[0]
-    _kernels.require(packed, "packed", torch.float32, (n, F))
     _kernels.require(gauss_id, "gauss_id", torch.int32, (R,))
     _kernels.require(slot_sorted, "slot_sorted", torch.int32, (R,))
     _kernels.require(tile_start, "tile_start", torch.int32, (T,))
@@ -272,16 +324,67 @@ def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     rows = torch.zeros((R, gc), dtype=torch.float32, device=packed.device)
     fn = _kernels.library("composite_bwd").adgs_composite_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
     p = _kernels.ptr
-    err = fn(p(packed), F, p(gauss_id), p(slot_sorted), p(tile_start),
-             p(tile_count), T, grid_x, ch, p(fwd_out), p(g_out), gc, p(rows),
+    err = fn(p(packed), ld, int(layout == "rows"), p(gauss_id),
+             p(slot_sorted), p(tile_start), p(tile_count), T, grid_x, ch,
+             p(fwd_out), p(g_out), gc, p(rows),
              _kernels.stream(packed.device))
     _kernels.check(err, "composite_bwd")
     _kernels.launches["composite_bwd"] += 1
     return rows
+
+
+def pad_to_lanes_torch(packed_t: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel B6: [F, N] -> [N_pad, 128] with out[n, f] =
+    packed_t[f, n], N_pad = N rounded up to PAD_BLK, zeros elsewhere."""
+    F, n = packed_t.shape
+    out = packed_t.new_zeros((-(-n // PAD_BLK) * PAD_BLK, LANES))
+    out[:n, :F] = packed_t.t()
+    return out
+
+
+def pad_to_lanes(packed_t: torch.Tensor) -> torch.Tensor:
+    """Kernel B6 on CUDA tensors; its plain twin on CPU tensors. packed_t
+    [F, N] f32 (F <= 128) is read by its strides, so packed.t() needs no
+    copy."""
+    if packed_t.device.type == "cpu":
+        return pad_to_lanes_torch(packed_t)
+    F, n = packed_t.shape
+    if not 1 <= F <= LANES:
+        raise ValueError(f"pad_to_lanes: F={F} unsupported")
+    if packed_t.device.type != "cuda" or packed_t.dtype != torch.float32:
+        raise ValueError("pad_to_lanes: expected a CUDA float32 tensor, got "
+                         f"{packed_t.dtype} on {packed_t.device}")
+    n_pad = -(-n // PAD_BLK) * PAD_BLK
+    out = torch.empty((n_pad, LANES), dtype=torch.float32,
+                      device=packed_t.device)
+    fn = _kernels.library("pad_lanes").adgs_pad_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 4 \
+        + [ctypes.c_void_p] * 2
+    sf, sn = packed_t.stride()
+    err = fn(_kernels.ptr(packed_t), F, n, sf, sn, n_pad, _kernels.ptr(out),
+             _kernels.stream(packed_t.device))
+    _kernels.check(err, "pad_lanes")
+    _kernels.launches["pad_lanes"] += 1
+    return out
+
+
+def build_instances_rows(gauss_id: torch.Tensor, packed: torch.Tensor,
+                         backend: str = "cuda") -> torch.Tensor:
+    """[R, 128] tile-ordered instance rows (counterpart of
+    build_instances_rm): B6 lane-pads the packed [N, F] rows, then one row
+    gather by gauss_id (an XLA gather in the JAX package, outside any
+    Pallas kernel). The JAX package appends 256 rows of Gaussian 0 only
+    to keep the TPU's last window DMA in bounds; no kernel here reads past
+    row R, so they are left out."""
+    pad = pad_to_lanes if backend == "cuda" else pad_to_lanes_torch
+    wide = pad(packed.t())
+    return torch.index_select(wide, 0, gauss_id.long())
 
 
 def segment_sum_torch(rows: torch.Tensor,
@@ -341,38 +444,45 @@ def segment_reduce_contiguous(rows: torch.Tensor, gauss_start: torch.Tensor,
 class CompositePacked(torch.autograd.Function):
     """Composite packed rows [N, F] through a Binning: (blended [T, ch, P],
     final_t [T, P]), differentiable with respect to the rows. backend
-    "cuda": B3 forward, B4 + B5 backward (their twins on CPU tensors);
-    "torch": the twins on any device."""
+    "cuda": B3 forward, B4 + B5 backward, and B6 under layout "rows" (their
+    twins on CPU tensors); "torch": the twins on any device. layout:
+    "gather" or "rows" (module docstring)."""
 
     @staticmethod
     def forward(ctx, packed, binning: Binning, ch: int, grid_x: int,
-                backend: str):
+                backend: str, layout: str = "gather"):
+        _check_layout(layout)
+        src = packed
+        if layout == "rows":
+            src = build_instances_rows(binning.gauss_id, packed, backend)
         fwd = composite_fwd if backend == "cuda" else composite_fwd_torch
-        blended, final_t = fwd(packed, ch, binning.gauss_id,
-                               binning.tile_start, binning.tile_count, grid_x)
-        ctx.save_for_backward(packed, torch.cat([blended, final_t[:, None]],
-                                                dim=1))
+        blended, final_t = fwd(src, ch, binning.gauss_id, binning.tile_start,
+                               binning.tile_count, grid_x, layout=layout)
+        ctx.save_for_backward(src, torch.cat([blended, final_t[:, None]],
+                                             dim=1))
         ctx.binning, ctx.ch, ctx.grid_x, ctx.backend = (binning, ch, grid_x,
                                                         backend)
+        ctx.layout, ctx.packed_shape = layout, tuple(packed.shape)
         return blended, final_t
 
     @staticmethod
     def backward(ctx, g_blended, g_final_t):
-        packed, fwd_out = ctx.saved_tensors
+        src, fwd_out = ctx.saved_tensors
         b, ch = ctx.binning, ctx.ch
         g_out = torch.cat([g_blended, g_final_t[:, None]], dim=1).contiguous()
         bwd = composite_bwd if ctx.backend == "cuda" else composite_bwd_torch
-        rows = bwd(packed, ch, b.gauss_id, b.slot_sorted, b.tile_start,
-                   b.tile_count, ctx.grid_x, fwd_out, g_out)
+        rows = bwd(src, ch, b.gauss_id, b.slot_sorted, b.tile_start,
+                   b.tile_count, ctx.grid_x, fwd_out, g_out,
+                   layout=ctx.layout)
         per = segment_reduce_contiguous(rows, b.gauss_start, b.num_rendered,
                                         ctx.backend)
-        n, F = packed.shape
-        z = packed.new_zeros
+        n, F = ctx.packed_shape
+        z = src.new_zeros
         pieces = [per[:, :N_GEOM_GRAD], z((n, F_GEOM - N_GEOM_GRAD)),
                   per[:, N_GEOM_GRAD:N_GEOM_GRAD + ch]]
         if F - F_GEOM - ch:
             pieces.append(z((n, F - F_GEOM - ch)))
-        return torch.cat(pieces, dim=-1), None, None, None, None
+        return torch.cat(pieces, dim=-1), None, None, None, None, None
 
 
 def tiles_to_image(tile_px: torch.Tensor,
@@ -389,10 +499,10 @@ def tiles_to_image(tile_px: torch.Tensor,
 def render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
            flow_points: Optional[torch.Tensor] = None,
            semantic: Optional[torch.Tensor] = None,
-           backend: str = "cuda") -> RasterOutput:
+           backend: str = "cuda", layout: str = "gather") -> RasterOutput:
     """Composite a preprocessed frame through CompositePacked (counterpart
-    of render_pallas); differentiable with respect to prep's floats, the
-    flow points and the semantic feature."""
+    of render_pallas) in the given instance layout; differentiable with
+    respect to prep's floats, the flow points and the semantic feature."""
     feats = [prep.rgb, composite_mod.depth_feature(
         prep.depth, settings.inv_depth)[:, None]]
     if flow_points is not None:
@@ -407,7 +517,8 @@ def render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
     log_op = torch.log(torch.clamp(opac, min=OP_FLOOR))
     packed, _ = pack_gaussian_rows(prep.mean2d, prep.conic, log_op, features)
     blended, t_final = CompositePacked.apply(
-        packed, binning, features.shape[-1], settings.grid_x, backend)
+        packed, binning, features.shape[-1], settings.grid_x, backend,
+        layout)
     blended = blended.transpose(1, 2)                   # [T, P, CH]
 
     color_t = blended[..., :3] + t_final[..., None] * settings.bg

@@ -65,12 +65,15 @@ def make_staged_render_fn(config: GaussianConfig,
                           inv_depth: bool = True,
                           backend: Optional[str] = None,
                           capacity: int = 1 << 18,
-                          render_objmask: bool = False):
+                          render_objmask: bool = False,
+                          layout: str = "gather"):
     """The serving entry point: render() with its options bound. Returns
     fn(camera, params, state, env, cam_rays, stage_marks=None) -> render()
     dict, computed without an autograd graph. The JAX entry point splits
     binning and rendering into two compiled programs; run eagerly, one
-    deform and one preprocess feed both, so the port needs no split."""
+    deform and one preprocess feed both, so the port needs no split.
+    layout: the compositor's instance layout, "gather" or "rows" (the JAX
+    package's ADGS_RM=0/1)."""
 
     @torch.no_grad()
     def full(camera, params, state, env, cam_rays, stage_marks=None):
@@ -78,7 +81,7 @@ def make_staged_render_fn(config: GaussianConfig,
                       cam_rays=cam_rays, render_objmask=render_objmask,
                       active_sh_degree=active_sh_degree, inv_depth=inv_depth,
                       backend=backend, capacity=capacity,
-                      stage_marks=stage_marks)
+                      stage_marks=stage_marks, layout=layout)
 
     return full
 
@@ -94,8 +97,10 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
            active_sh_degree: Optional[int] = None,
            inv_depth: bool = True, scaling_modifier: float = 1.0,
            backend: Optional[str] = None, capacity: int = 1 << 18,
-           stage_marks: Optional[list] = None) -> dict[str, Any]:
+           stage_marks: Optional[list] = None,
+           layout: str = "gather") -> dict[str, Any]:
     """screen_offset: [N, 2] zeros whose gradient is dL/dmean2d.
+    layout: the compositor's instance layout, "gather" or "rows".
     stage_marks: a list to receive CUDA-event marks "start", "deform",
     "preprocess", "binning", "compositing" and "sky" (adgs_tpu_torch._stages);
     None records nothing."""
@@ -123,7 +128,7 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
         colors_precomp=override_color, flow_points=flow_points,
         semantic=semantic, screen_offset=screen_offset,
         active_mask=state.alive, backend=backend, capacity=capacity,
-        stage_marks=stage_marks)
+        stage_marks=stage_marks, layout=layout)
 
     foreground = out.color
     if env_map is not None and cam_rays is not None:

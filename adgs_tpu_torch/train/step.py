@@ -43,7 +43,8 @@ class LossAndGrads(NamedTuple):
 def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                     frame_gap: float, scene_extent: float,
                     cameras_extent: float, backend: Optional[str] = None,
-                    capacity: int = 1 << 18, inv_depth: bool = True):
+                    capacity: int = 1 << 18, inv_depth: bool = True,
+                    layout: str = "gather"):
     """Returns step(params, env, opt_state, state, camera, batch, cam_rays,
     iteration, active_sh_degree=3, stage_marks=None) -> (params, env,
     opt_state, state, logs). The step also carries `loss_and_grads`, its
@@ -51,6 +52,8 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
 
     backend: "cuda" (the kernels; their twins on CPU tensors), "torch"
     (the plain twins on any device) or None (from the parameters' device).
+    layout: the compositor's instance layout, "gather" or "rows" (the JAX
+    package's ADGS_RM=0/1); both give the same gradients bit for bit.
     stage_marks: a list to receive CUDA-event marks (adgs_tpu_torch._stages):
     render()'s "start" .. "sky", then "losses", "backward", "adam", "stats".
     """
@@ -73,7 +76,8 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                      cam_rays=cam_rays, flow_time=flow_time,
                      render_objmask=render_objmask, screen_offset=so,
                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
-                     backend=be, capacity=capacity, stage_marks=stage_marks)
+                     backend=be, capacity=capacity, stage_marks=stage_marks,
+                     layout=layout)
         total, logs = compute_losses(pkg, batch, tr.gaussians, state, config,
                                      opt, frame_gap, scene_extent, backend=be)
         mark(stage_marks, "losses")

@@ -105,21 +105,32 @@ def test_default_device_needs_cuda(monkeypatch):
                     torch.zeros(2, 2, 2, device="meta"))
 
 
+# modules the walk must reach (the evaluation entry point and its
+# dependencies, and the lab), so that a package missing its __init__.py
+# cannot drop out of the check unnoticed
+NEEDED = ("cli.common", "cli.render", "data.colmap", "data.frames",
+          "data.ply", "data.readers", "exp.lab_rowmajor", "ops.lpips",
+          "train.checkpoint", "raster.render", "train.step")
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor
     adgs_tpu (nor does chip_smoke.py)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import adgs_tpu_torch\n"
-        "for m in pkgutil.walk_packages(adgs_tpu_torch.__path__, "
-        "'adgs_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = {m.name for m in pkgutil.walk_packages("
+        "adgs_tpu_torch.__path__, 'adgs_tpu_torch.')}\n"
+        "for name in sorted(names):\n"
+        "    importlib.import_module(name)\n"
+        f"missing = sorted(set('adgs_tpu_torch.' + n for n in {NEEDED!r}) "
+        "- names)\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'adgs_tpu' or "
         "k.startswith('adgs_tpu.'))\n"
-        "print('BAD', bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print('BAD', bad, 'MISSING', missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
