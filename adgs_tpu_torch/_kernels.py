@@ -3,10 +3,14 @@
 Each source is compiled on first use by `nvcc` for sm_90a into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), named by a hash of the source and of the shared headers
-(csrc/*.cuh) and loaded with ctypes; kernels that share a source share
-its library. Every C
-entry point launches on the stream it is given and returns
-cudaGetLastError(); `check` raises when that is not 0.
+(csrc/*.cuh) and loaded with ctypes as a PyDLL (the entry points only
+enqueue launches, so they keep the interpreter lock rather than pay to
+release and take it back); kernels that share a source share its
+library. Every C entry point launches on the stream it is given and
+returns cudaGetLastError(); `check` raises when that is not 0. `entry`
+resolves an entry point and sets its ctypes signature once, so a
+wrapper's call costs its argument checks, the pointer conversions and
+the ctypes call.
 
 `launches` counts, per kernel, the calls that launched it. Each wrapper
 adds one where it launches, and nowhere else, so a caller can reset the
@@ -44,7 +48,10 @@ SOURCES = {
 
 launches = {name: 0 for name in SOURCES}
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
+_entries: dict[tuple[str, str], object] = {}
+# argument codes of `entry` signatures
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
 
 
 def reset_launches() -> None:
@@ -115,7 +122,7 @@ def build_log(source: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str) -> ctypes.PyDLL:
     """The loaded library of one kernel, built first if needed."""
     source = SOURCES[name]
     lib = _libs.get(source)
@@ -123,17 +130,29 @@ def library(name: str) -> ctypes.CDLL:
         job = _start_build(source)
         if job is not None:
             _finish_build(source, job)
-        lib = ctypes.CDLL(str(_lib_path(source)))
+        lib = ctypes.PyDLL(str(_lib_path(source)))
         _libs[source] = lib
     return lib
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def entry(name: str, symbol: str, signature: str):
+    """The C function `symbol` of kernel `name`'s library, returning int,
+    with one argument per letter of `signature` ("p" pointer or stream,
+    "i" int, "q" long long); resolved and typed on the first call only."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        _entries[(name, symbol)] = fn
+    return fn
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream of CUDA tensor t's
+    device. torch.cuda.current_stream builds a Stream object first, which
+    costs the host more than the launch it feeds."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, name: str) -> None:
@@ -144,13 +163,17 @@ def check(err: int, name: str) -> None:
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
             shape: tuple | None = None) -> None:
-    """Validate a kernel argument before its pointer is passed."""
-    if t.device.type != "cuda":
+    """Validate a kernel argument before its pointer is passed (shape: a
+    tuple)."""
+    if (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+            and (shape is None or t.shape == shape)):
+        return
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

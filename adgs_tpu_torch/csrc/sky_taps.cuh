@@ -18,9 +18,11 @@
 namespace adgs {
 
 // cell index (yi * Wg + xi, clipped) and weight of each of the 4 taps;
-// inb[t] is false for a tap off the grid (its weight is 0)
+// inb[t] is false for a tap off the grid (its weight is 0). Index is
+// int32_t where the caller has checked Hg * Wg < 2^31, else int64_t.
+template <typename Index>
 __device__ __forceinline__ void sky_taps(float2 cxy, int Hg, int Wg,
-                                         int64_t idx[4], float w[4],
+                                         Index idx[4], float w[4],
                                          bool inb[4]) {
   const float x = __fmul_rn(__fmul_rn(__fadd_rn(cxy.x, 1.0f), 0.5f),
                             (float)(Wg - 1));
@@ -46,7 +48,7 @@ __device__ __forceinline__ void sky_taps(float2 cxy, int Hg, int Wg,
     // fmaxf maps NaN to 0, as XLA's saturating float->int conversion does
     const int xi = (int)fminf(fmaxf(tx[t], 0.0f), xmax);
     const int yi = (int)fminf(fmaxf(ty[t], 0.0f), ymax);
-    idx[t] = (int64_t)yi * Wg + xi;
+    idx[t] = (Index)yi * Wg + xi;
     w[t] = inb[t] ? tw[t] : 0.0f;
   }
 }

@@ -24,7 +24,6 @@ round trip); with --device cpu they are host times of the twins.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
 import time
 from typing import NamedTuple
@@ -117,13 +116,9 @@ def _launch(name: str, src: torch.Tensor, mode: int, ld: int,
     _kernels.require(src, "inst", torch.float32)
     out = torch.empty((p.nprog, 8, 8), dtype=torch.float32,
                       device=src.device)
-    fn = _kernels.library(name).adgs_lab_block_sums
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    err = fn(_kernels.ptr(src), mode, ld, p.nprog, p.per, _kernels.ptr(out),
-             _kernels.stream(src.device))
+    fn = _kernels.entry(name, "adgs_lab_block_sums", "piqiipp")
+    err = fn(src.data_ptr(), mode, ld, p.nprog, p.per, out.data_ptr(),
+             _kernels.stream(src))
     _kernels.check(err, name)
     _kernels.launches[name] += 1
     return out

@@ -16,8 +16,6 @@ The port never calls F.grid_sample itself.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _kernels
@@ -59,27 +57,23 @@ def grid_sample_torch(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def grid_sample(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Kernel B7 on CUDA tensors; its plain twin on CPU tensors."""
-    if grid.device.type == "cpu":
+    """Kernel B7 on CUDA tensors; its plain twin on CPU tensors. The CUDA
+    path does its checks, one allocation and one ctypes call, so that a
+    call costs the host about what one PyTorch operator does."""
+    if grid.is_cpu:
         return grid_sample_torch(grid, coords)
     if grid.dim() != 3 or coords.shape[-1] != 2:
         raise ValueError("grid_sample: expected grid [C,Hg,Wg], coords [...,2]")
     C, Hg, Wg = grid.shape
-    if C * Hg * Wg >= 2 ** 31:
-        raise ValueError("grid_sample: grid too large for int32 indexing")
+    npix = coords.numel() // 2
+    if C * Hg * Wg >= 2 ** 31 or C * npix >= 2 ** 31:
+        raise ValueError("grid_sample: too large for int32 indexing")
     _kernels.require(grid, "grid", torch.float32)
     _kernels.require(coords, "coords", torch.float32)
-    out = torch.empty((C,) + tuple(coords.shape[:-1]), dtype=torch.float32,
-                      device=grid.device)
-    npix = coords.numel() // 2
-    fn = _kernels.library("grid_sample").adgs_grid_sample
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    p = _kernels.ptr
-    err = fn(p(grid), C, Hg, Wg, p(coords), npix, p(out),
-             _kernels.stream(grid.device))
+    out = grid.new_empty((C,) + coords.shape[:-1])
+    err = _kernels.entry("grid_sample", "adgs_grid_sample", "piiipipp")(
+        grid.data_ptr(), C, Hg, Wg, coords.data_ptr(), npix, out.data_ptr(),
+        _kernels.stream(grid))
     _kernels.check(err, "grid_sample")
     _kernels.launches["grid_sample"] += 1
     return out
@@ -117,25 +111,18 @@ def grid_sample_bwd(g: torch.Tensor, coords: torch.Tensor,
     _kernels.require(coords, "coords", torch.float32)
     _kernels.require(g, "g", torch.float32, (C,) + tuple(coords.shape[:-1]))
     dev = g.device
-    lib = _kernels.library("grid_sample_bwd")
-    p = _kernels.ptr
-    st = _kernels.stream(dev)
+    st = _kernels.stream(g)
     cells = torch.empty(4 * npix, dtype=torch.int32, device=dev)
-    fn = lib.adgs_sky_tap_cells
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2)
-    _kernels.check(fn(p(coords), npix, Hg, Wg, p(cells), st),
+    fn = _kernels.entry("grid_sample_bwd", "adgs_sky_tap_cells", "piiipp")
+    _kernels.check(fn(coords.data_ptr(), npix, Hg, Wg, cells.data_ptr(), st),
                    "grid_sample_bwd (tap cells)")
     sorted_cells, order = torch.sort(cells, stable=True)
     d_grid = torch.zeros((C, Hg, Wg), dtype=torch.float32, device=dev)
-    fn = lib.adgs_sky_scatter_runs
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
-    _kernels.check(fn(p(sorted_cells), p(order), 4 * npix, p(coords), p(g),
-                      C, npix, Hg, Wg, p(d_grid), st),
+    fn = _kernels.entry("grid_sample_bwd", "adgs_sky_scatter_runs",
+                        "ppippiiiipp")
+    _kernels.check(fn(sorted_cells.data_ptr(), order.data_ptr(), 4 * npix,
+                      coords.data_ptr(), g.data_ptr(), C, npix, Hg, Wg,
+                      d_grid.data_ptr(), st),
                    "grid_sample_bwd (scatter runs)")
     _kernels.launches["grid_sample_bwd"] += 1
     return d_grid

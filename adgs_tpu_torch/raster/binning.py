@@ -18,7 +18,6 @@ Binning, never hidden. Nothing here waits for the device.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -98,14 +97,11 @@ def compact_live(starts, tiles, rect_min, rect_max, depth_q, num_rendered):
     block_live = torch.empty(-(-n // 1024), dtype=torch.int32, device=dev)
     n_live = torch.empty(1, dtype=torch.int32, device=dev)
     table = torch.empty((n, 8), dtype=torch.int32, device=dev)
-    fn = _kernels.library("compact_live").adgs_compact_live
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [
-        ctypes.c_void_p] * 4
-    p = _kernels.ptr
-    err = fn(p(starts), p(tiles), p(rect_min), p(rect_max), p(depth_q),
-             p(num_rendered), n, p(block_live), p(n_live), p(table),
-             _kernels.stream(dev))
+    fn = _kernels.entry("compact_live", "adgs_compact_live", "ppppppipppp")
+    err = fn(starts.data_ptr(), tiles.data_ptr(), rect_min.data_ptr(),
+             rect_max.data_ptr(), depth_q.data_ptr(), num_rendered.data_ptr(),
+             n, block_live.data_ptr(), n_live.data_ptr(), table.data_ptr(),
+             _kernels.stream(tiles))
     _kernels.check(err, "compact_live")
     _kernels.launches["compact_live"] += 1
     return table, n_live
@@ -146,13 +142,10 @@ def expand(table, n_live, num_rendered, capacity: int, grid_x: int,
         raise ValueError("expand: no Gaussians")
     key = torch.empty(capacity, dtype=torch.int64, device=table.device)
     gid = torch.empty(capacity, dtype=torch.int32, device=table.device)
-    fn = _kernels.library("expand").adgs_expand
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p] * 3
-    p = _kernels.ptr
-    err = fn(p(table), p(n_live), p(num_rendered), n, capacity, grid_x,
-             d_bits, num_tiles, p(key), p(gid), _kernels.stream(table.device))
+    fn = _kernels.entry("expand", "adgs_expand", "pppiiiiippp")
+    err = fn(table.data_ptr(), n_live.data_ptr(), num_rendered.data_ptr(), n,
+             capacity, grid_x, d_bits, num_tiles, key.data_ptr(),
+             gid.data_ptr(), _kernels.stream(table))
     _kernels.check(err, "expand")
     _kernels.launches["expand"] += 1
     return key, gid

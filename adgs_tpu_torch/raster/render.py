@@ -33,7 +33,6 @@ Instance layouts (`layout`, the JAX package's ADGS_RM=0/1):
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -52,6 +51,7 @@ N_GEOM_GRAD = 6    # d mean2d (2), d conic (3), d log-opacity
 OP_FLOOR = 1e-37   # log(max(op, OP_FLOOR)) keeps dead slots finite
 # plain twins: elements of one [tiles, 256, instances] temporary
 PLAIN_BATCH_ELEMS = 1 << 25
+SEG_TILE_ROWS = 64   # rows of one of B5's tiles (csrc/segment_sum.cu)
 
 
 def _round8(x: int) -> int:
@@ -228,16 +228,10 @@ def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     _kernels.require(tile_count, "tile_count", torch.int32, (T,))
     out = torch.empty((T, ch + 1, TILE_PIX), dtype=torch.float32,
                       device=packed.device)
-    fn = _kernels.library("composite_fwd").adgs_composite_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    p = _kernels.ptr
-    err = fn(p(packed), ld, int(layout == "rows"), p(gauss_id),
-             p(tile_start), p(tile_count), T, grid_x, ch, p(out),
-             _kernels.stream(packed.device))
+    fn = _kernels.entry("composite_fwd", "adgs_composite_fwd", "piipppiiipp")
+    err = fn(packed.data_ptr(), ld, int(layout == "rows"), gauss_id.data_ptr(),
+             tile_start.data_ptr(), tile_count.data_ptr(), T, grid_x, ch,
+             out.data_ptr(), _kernels.stream(packed))
     _kernels.check(err, "composite_fwd")
     _kernels.launches["composite_fwd"] += 1
     return out[:, :ch, :], out[:, ch, :]
@@ -322,17 +316,13 @@ def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     _kernels.require(g_out, "g_out", torch.float32, (T, ch + 1, TILE_PIX))
     gc = grad_cols(ch)
     rows = torch.zeros((R, gc), dtype=torch.float32, device=packed.device)
-    fn = _kernels.library("composite_bwd").adgs_composite_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 2)
-    p = _kernels.ptr
-    err = fn(p(packed), ld, int(layout == "rows"), p(gauss_id),
-             p(slot_sorted), p(tile_start), p(tile_count), T, grid_x, ch,
-             p(fwd_out), p(g_out), gc, p(rows),
-             _kernels.stream(packed.device))
+    fn = _kernels.entry("composite_bwd", "adgs_composite_bwd",
+                        "piippppiiippipp")
+    err = fn(packed.data_ptr(), ld, int(layout == "rows"), gauss_id.data_ptr(),
+             slot_sorted.data_ptr(), tile_start.data_ptr(),
+             tile_count.data_ptr(), T, grid_x, ch, fwd_out.data_ptr(),
+             g_out.data_ptr(), gc, rows.data_ptr(),
+             _kernels.stream(packed))
     _kernels.check(err, "composite_bwd")
     _kernels.launches["composite_bwd"] += 1
     return rows
@@ -362,13 +352,10 @@ def pad_to_lanes(packed_t: torch.Tensor) -> torch.Tensor:
     n_pad = -(-n // PAD_BLK) * PAD_BLK
     out = torch.empty((n_pad, LANES), dtype=torch.float32,
                       device=packed_t.device)
-    fn = _kernels.library("pad_lanes").adgs_pad_lanes
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 4 \
-        + [ctypes.c_void_p] * 2
+    fn = _kernels.entry("pad_lanes", "adgs_pad_lanes", "piqqqqpp")
     sf, sn = packed_t.stride()
-    err = fn(_kernels.ptr(packed_t), F, n, sf, sn, n_pad, _kernels.ptr(out),
-             _kernels.stream(packed_t.device))
+    err = fn(packed_t.data_ptr(), F, n, sf, sn, n_pad, out.data_ptr(),
+             _kernels.stream(packed_t))
     _kernels.check(err, "pad_lanes")
     _kernels.launches["pad_lanes"] += 1
     return out
@@ -391,7 +378,7 @@ def segment_sum_torch(rows: torch.Tensor,
                       bounds: torch.Tensor) -> torch.Tensor:
     """Plain twin of kernel B5: out[i] = rows[bounds[i]:bounds[i+1]].sum(0),
     as differences of a float64 running sum (so not bitwise the kernel's
-    sequential f32 sums)."""
+    f32 sums)."""
     cs = torch.cumsum(rows.to(torch.float64), dim=0)
     cs = torch.cat([cs.new_zeros((1, rows.shape[1])), cs], dim=0)
     b = bounds.long()
@@ -400,20 +387,25 @@ def segment_sum_torch(rows: torch.Tensor,
 
 def segment_sum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     """Kernel B5 on CUDA tensors; its plain twin on CPU tensors. rows
-    [R, D] f32, bounds [n+1] int32 non-decreasing -> [n, D]."""
+    [R, D] f32, bounds [n+1] int32 non-decreasing with bounds[n] <= R
+    -> [n, D]. The kernel's scratch (a partial sum pair and one int per
+    tile of rows) is allocated here."""
     if rows.device.type == "cpu":
         return segment_sum_torch(rows, bounds)
     R, D = rows.shape
     n = bounds.shape[0] - 1
-    _kernels.require(rows, "rows", torch.float32, (R, D))
-    _kernels.require(bounds, "bounds", torch.int32, (n + 1,))
+    _kernels.require(rows, "rows", torch.float32)
+    _kernels.require(bounds, "bounds", torch.int32)
     out = torch.empty((n, D), dtype=torch.float32, device=rows.device)
-    fn = _kernels.library("segment_sum").adgs_segment_sum
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    p = _kernels.ptr
-    err = fn(p(rows), D, p(bounds), n, p(out), _kernels.stream(rows.device))
+    if n <= 0 or D == 0:
+        return out
+    tile = SEG_TILE_ROWS
+    tiles = max(1, -(-R // tile))
+    part = torch.empty(tiles * 2 * D, dtype=torch.float32, device=rows.device)
+    meta = torch.empty(tiles + 1, dtype=torch.int32, device=rows.device)
+    err = _kernels.entry("segment_sum", "adgs_segment_sum", "piipiipppp")(
+        rows.data_ptr(), R, D, bounds.data_ptr(), n, tile, out.data_ptr(),
+        part.data_ptr(), meta.data_ptr(), _kernels.stream(rows))
     _kernels.check(err, "segment_sum")
     _kernels.launches["segment_sum"] += 1
     return out

@@ -12,31 +12,19 @@ Phases (any failure exits non-zero before the last line is printed):
      3x8192x8192 sky grid, all made from --seed; for training also the
      frame batch of bench.py's protocol and KNN groups (obj_capacity // 8
      anchors of 8, scipy cKDTree over the alive object Gaussians);
-  4. kernel parity at the slices' shapes, each kernel against its plain
-     PyTorch twin on the same inputs: B2 live compaction and B1 expansion
-     bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample 1e-6
-     (a served frame's inputs); on the training step's inputs with N(0,1)
-     cotangents, B4 compositing backward (rtol 1e-3, atol 1e-5
-     max|twin|), B5 segment sum on B4's rows and on the KNN gather's
-     sorted rows, and B8 sky scatter (1e-6 of max|twin|); in the rows
-     instance layout (ADGS_RM=1), B6 lane pad bitwise against its twin
-     and F.pad, B3 and B4 bitwise against their gather layout;
-  5. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
-     their twins at 1e-5 of max|twin|, then the ported lab at its
-     defaults with the launch counts reset just before;
-  6. the serving path: 8 requests through make_staged_render_fn
+  4. the serving path: 8 requests through make_staged_render_fn
      (two camera poses, times spread over [0, 1]) with the launch counts
      reset just before; every output finite, no overflow, every serving
      kernel launched; one frame held to the "torch" backend at 1e-4;
-  7. cli.render: the full-width model saved as a checkpoint (save_ply,
+  5. cli.render: the full-width model saved as a checkpoint (save_ply,
      env.npy, cfg_args.json) beside a 1242x375 KITTI-format scene, then
      adgs_tpu_torch.cli.render.main over both splits once per layout,
      launch counts reset before each: B1, B2, B3, B7 in both, B6 only
      under ADGS_RM=1; PNGs bitwise equal across layouts, PSNR and SSIM
      finite and equal; each layout's FPS;
-  8. serving in both layouts in turns (gather, rows, ...), AB_ROUNDS
+  6. serving in both layouts in turns (gather, rows, ...), AB_ROUNDS
      turns of 8 requests each;
-  9. the training path: 6 steps of make_train_step at full width
+  7. the training path: 6 steps of make_train_step at full width
      (OptimizationConfig() defaults, every loss term on, SH degree 3,
      iteration 1000) with the launch counts reset just before; losses
      finite, no overflow, all seven kernels launched; one step held to
@@ -44,16 +32,35 @@ Phases (any failure exits non-zero before the last line is printed):
      updated parameters as tests/test_torch_train.py, statistics); one
      step run twice from the same inputs, and one step in the rows
      layout, every updated tensor bitwise equal to the first;
- 10. training in both layouts in turns, AB_ROUNDS turns of 3 steps;
+  8. training in both layouts in turns, AB_ROUNDS turns of 3 steps;
+  9. kernel parity at the slices' shapes, each kernel against its plain
+     PyTorch twin on the same inputs: B2 live compaction and B1 expansion
+     bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample bitwise
+     (a served frame's coords, off-grid and NaN coords, and C=1); on the
+     training step's inputs with N(0,1) cotangents, B4 compositing
+     backward (rtol 1e-3, atol 1e-5 max|twin|), B5 segment sum on B4's
+     rows and on the KNN gather's sorted rows, and B8 sky scatter (1e-6
+     of max|twin|); B5 also on synthetic bounds (a 100,000-row segment,
+     all segments empty, bounds[0] > 0 with bounds[n] < R; D in 1, 3,
+     16, 33, 98), each case launched twice and bitwise equal; in the rows
+     instance layout (ADGS_RM=1), B6 lane pad bitwise against its twin
+     and F.pad, B3 and B4 bitwise against their gather layout. This
+     phase and the next run after the timed paths, so that their
+     profiler sessions and allocations do not reach the timed steps;
+ 10. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
+     their twins at 1e-5 of max|twin|, then the ported lab at its
+     defaults with the launch counts reset just before;
  11. times with CUDA events: ms per frame and per training step and ms
      per stage, all read from events recorded inside the requests and
      steps themselves, peak device memory, a torch.profiler view of one
      request and one step (top device ops, device busy share), and one
      JSON line ({"kernels": [...]}) with each kernel's launches on its
      path (training; B6 and the rows B3 on cli.render's rows run, the
-     rows B4 on the rows training steps, E1/E2 in the lab), its time, its
-     plain twin's, its bound and, where one PyTorch call computes the same
-     function, that call's time.
+     rows B4 on the rows training steps, E1/E2 in the lab), its time by
+     CUDA events over calls enqueued back to back and its device time per
+     call (torch.profiler, a few calls), its plain twin's time, its bound
+     and, where one PyTorch call computes the same function, that call's
+     two times.
 Phases 3-11 are `run(device, seed)`, which a CPU rehearsal can call at a
 small size with host-side stand-ins for the CUDA timers.
 The last line is {"ok": true, "device": {...}}.
@@ -147,6 +154,59 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(prof):
+    """The device-side events of a finished torch.profiler session (kernels,
+    copies, sets: the CPU ops that launched them carry the same time
+    again) and the name of their device-time attribute."""
+    import torch
+    events = prof.key_averages()
+    if not events:
+        return [], "self_device_time_total"
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, attr) > 0], attr
+
+
+def device_ms(fn, calls: int = 5, sessions: int = 3):
+    """Mean device milliseconds per call of fn(): the device time that
+    torch.profiler records during `calls` calls, summed, over the calls.
+    Beside cuda_ms it splits a call's time between the card and the host
+    that enqueues it. A profiler session now and then records no device
+    event at all; such a session is run again, up to `sessions` in all,
+    and None is returned if none records any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels, attr = device_events(prof)
+        if kernels:
+            return sum(getattr(e, attr) for e in kernels) / 1e3 / calls
+    log("  (the profiler recorded no device time in "
+        f"{sessions} sessions)")
+    return None
+
+
+def times(fn, iters: int, lib=None, lib_iters: int | None = None) -> dict:
+    """A record's times: fn's card ms (CUDA events over `iters` calls
+    enqueued back to back) and device ms, and the same two for the
+    library call `lib` where there is one (else None)."""
+    out = dict(ms=cuda_ms(fn, iters=iters), device_ms=device_ms(fn),
+               library_ms=None, library_device_ms=None)
+    if lib is not None:
+        out.update(library_ms=cuda_ms(lib, iters=lib_iters or iters),
+                   library_device_ms=device_ms(lib))
+    return out
 
 
 def yaw(rad: float) -> np.ndarray:
@@ -248,7 +308,7 @@ def check_close(name, got, want, atol, rtol=0.0) -> float:
     return err
 
 
-def kernel_phase(cfg, params, state, env, rays, cam, capacity):
+def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
     """B2, B1, B3 and B7 against their plain twins at a served frame's
     shapes; returns per-kernel records (error, times, bound)."""
     import torch
@@ -279,9 +339,9 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
         raise AssertionError("B2 compaction disagrees with its plain twin")
     rec["compact_live"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: bl.compact_live(*cargs), iters=20),
+        **times(lambda: bl.compact_live(*cargs), 20),
         plain_ms=cuda_ms(lambda: bl.compact_live_torch(*cargs), iters=5),
-        bytes=n * 28 + n * 32, flops=0, library_ms=None)
+        bytes=n * 28 + n * 32, flops=0)
 
     # B1: expansion of B2's table, bitwise
     d_bits = bl.depth_bits_for(st.num_tiles)
@@ -297,9 +357,9 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
     R = key_k.numel()
     rec["expand"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: bl.expand(*args), iters=20),
+        **times(lambda: bl.expand(*args), 20),
         plain_ms=cuda_ms(lambda: bl.expand_torch(*args), iters=5),
-        bytes=k * 32 + R * 12, flops=0, library_ms=None)
+        bytes=k * 32 + R * 12, flops=0)
 
     # B3: compositing, ch=4 (serving) and ch=8 (+flow +semantic)
     opac = torch.where(prep.visible, prep.opacity,
@@ -348,33 +408,46 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
     rec["composite_fwd_rows"] = dict(
         kernel="composite_fwd", use="rows layout, ch=4",
         max_abs_err=err_rows,
-        ms=cuda_ms(lambda: rl.composite_fwd(*rargs, layout="rows"),
-                   iters=20),
+        **times(lambda: rl.composite_fwd(*rargs, layout="rows"), 20),
         plain_ms=cuda_ms(lambda: rl.composite_fwd_torch(*rargs,
                                                         layout="rows"),
                          iters=2),
         # the F used columns of each instance row, ranges, output
         bytes=R * f_cols * 4 + T * 8 + T * 5 * 256 * 4,
         flops=(int(pairs.hit) * (20 + 2 * ch)
-               + int(pairs.gated) * GATED_PAIR_OPS),
-        library_ms=None)
+               + int(pairs.gated) * GATED_PAIR_OPS))
     rec["composite_fwd"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: rl.composite_fwd(*cargs), iters=20),
+        **times(lambda: rl.composite_fwd(*cargs), 20),
         plain_ms=cuda_ms(lambda: rl.composite_fwd_torch(*cargs), iters=2),
         bytes=packed.numel() * 4 + R * 4 + T * 8 + T * 5 * 256 * 4,
         # per composited pair: 16 for power and alpha, 3 for T and its
         # test, 1 for the weight, 2 ch for the blend
         flops=(int(pairs.hit) * (20 + 2 * ch)
                + int(pairs.gated) * GATED_PAIR_OPS),
-        library_ms=None, pairs=pairs)
+        pairs=pairs)
 
-    # B7: sky sample on the full grid at the frame's coords, 1e-6
+    # B7: sky sample on the full grid, bitwise its twin: at the frame's
+    # coords; at coords in [-1.2, 1.2] with 5% NaN (taps off the grid get
+    # weight 0, NaN indices saturate to 0); at C = 1 (the generic kernel)
     coords = sky_coords(rays, cam)
     grid = env.grid
     sk = gs.grid_sample(grid, coords)
-    sp = gs.grid_sample_torch(grid, coords)
-    err = check_close("B7 grid_sample", sk, sp, 1e-6)
+    check_bitwise("B7 grid_sample vs its twin (served frame)", sk,
+                  gs.grid_sample_torch(grid, coords))
+    gen = torch.Generator(device=grid.device).manual_seed(seed)
+    wild = torch.rand(coords.shape, generator=gen, device=grid.device)
+    wild = wild * 2.4 - 1.2
+    wild[torch.rand(coords.shape, generator=gen, device=grid.device)
+         < 0.05] = float("nan")
+    grid1 = grid[:1].contiguous()
+    for label, g, c in (("off-grid and NaN coords", grid, wild),
+                        ("C=1, served frame", grid1, coords),
+                        ("C=1, off-grid and NaN coords", grid1, wild)):
+        check_bitwise(f"B7 grid_sample vs its twin ({label})",
+                      gs.grid_sample(g, c), gs.grid_sample_torch(g, c))
+    del wild, grid1
+    err = 0.0
     lib = F.grid_sample(grid[None], coords[None], align_corners=True,
                         padding_mode="zeros")[0]
     check_close("B7 grid_sample vs torch grid_sample (yardstick)", sk, lib,
@@ -385,14 +458,18 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity):
     C, npix = grid.shape[0], coords.numel() // 2
     rec["grid_sample"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: gs.grid_sample(grid, coords), iters=50),
+        **times(lambda: gs.grid_sample(grid, coords), 50,
+                lib=lambda: F.grid_sample(grid[None], coords[None],
+                                          align_corners=True,
+                                          padding_mode="zeros")),
         plain_ms=cuda_ms(lambda: gs.grid_sample_torch(grid, coords), iters=10),
-        library_ms=cuda_ms(lambda: F.grid_sample(
-            grid[None], coords[None], align_corners=True,
-            padding_mode="zeros"), iters=50),
         bytes=npix * 8 + C * npix * 4 + cells.numel() * C * 4,
         flops=npix * (12 + 8 * C), distinct_cells=int(cells.numel()))
     return rec
+
+
+def fmt_ms(x) -> str:
+    return "none" if x is None else f"{x:.4f}"
 
 
 def check_bitwise(name, got, want) -> None:
@@ -425,9 +502,8 @@ def pad_lanes_record(packed):
     check_bitwise("B6 vs torch F.pad of the transpose (yardstick)", wide,
                   lib())
     return dict(max_abs_err=0.0,
-                ms=cuda_ms(lambda: rl.pad_to_lanes(src), iters=20),
+                **times(lambda: rl.pad_to_lanes(src), 20, lib=lib),
                 plain_ms=cuda_ms(lambda: rl.pad_to_lanes_torch(src), iters=5),
-                library_ms=cuda_ms(lib, iters=20),
                 bytes=F * n * 4 + n_pad * rl.LANES * 4, flops=0,
                 use=f"[{F}, {n}] -> [{n_pad}, {rl.LANES}]")
 
@@ -443,25 +519,69 @@ def sky_coords(rays, cam):
     return (ang * ang.new_tensor([1.0 / math.pi, 2.0 / math.pi])).contiguous()
 
 
-def segment_sum_record(label, rows, bounds, owner, use):
-    """B5 against its twin at 1e-6 of max|twin| (the twin sums in float64)
-    on rows [R, D] and bounds [n+1]; owner holds the segment of each row in
-    [bounds[0], bounds[n]), for index_add_. Returns the kernel's record."""
-    import torch
+def check_segment_sum(label, rows, bounds) -> float:
+    """B5 on rows [R, D] and bounds [n+1] against its twin at 1e-6 of
+    max|twin| plus 1e-6 relative (the twin sums in float64), and a second
+    launch bitwise equal to the first (the order of the sums is fixed).
+    Returns the largest difference."""
     from adgs_tpu_torch.raster import render as rl
     per = rl.segment_sum(rows, bounds)
+    check_bitwise(f"{label}, second launch", rl.segment_sum(rows, bounds),
+                  per)
     per_p = rl.segment_sum_torch(rows, bounds)
-    scale = float(per_p.abs().max())
-    err = check_close(label, per, per_p, 1e-6 * scale, 1e-6)
+    scale = float(per_p.abs().max()) if per_p.numel() else 0.0
+    return check_close(label, per, per_p, 1e-6 * scale, 1e-6)
+
+
+def segment_sum_cases(dev, seed) -> None:
+    """B5's synthetic cases, for D in 1, 3, 16, 33, 98: one segment of
+    100,000 rows among 50,000 segments of 0-3 rows; every segment empty
+    (bounds[0] = bounds[n] inside the rows); bounds[0] > 0 with bounds[n]
+    < R; rows N(0,1) from the seed."""
+    import torch
+    rng = np.random.default_rng(seed + 3)
+
+    def rows(R, D):
+        return torch.as_tensor(rng.standard_normal((R, D), np.float32),
+                               device=dev)
+
+    def tensor(b):
+        return torch.as_tensor(np.asarray(b, np.int32), device=dev)
+
+    for D in (1, 3, 16, 33, 98):
+        lens = rng.integers(0, 4, size=50_000)
+        lens[rng.integers(50_000)] = 100_000
+        b = np.concatenate([[0], np.cumsum(lens)])
+        check_segment_sum(f"B5 D={D}, one segment of 100000 rows",
+                          rows(int(b[-1]), D), tensor(b))
+        check_segment_sum(f"B5 D={D}, all segments empty", rows(1000, D),
+                          tensor(np.full(40_001, 377)))
+        lens = rng.integers(0, 6, size=30_000)
+        b = 1234 + np.concatenate([[0], np.cumsum(lens)])
+        check_segment_sum(f"B5 D={D}, bounds[0] > 0 and bounds[n] < R",
+                          rows(int(b[-1]) + 5000, D), tensor(b))
+
+
+def segment_sum_record(label, rows, bounds, owner, use):
+    """B5 held as check_segment_sum holds it, on rows [R, D] and bounds
+    [n+1]; owner holds the segment of each row in [bounds[0], bounds[n]),
+    for index_add_. Returns the kernel's record."""
+    import torch
+    from adgs_tpu_torch.raster import render as rl
+    err = check_segment_sum(label, rows, bounds)
     n, D = bounds.shape[0] - 1, rows.shape[1]
     lo, hi = int(bounds[0]), int(bounds[-1])
     used = rows[lo:hi]
+    lens = (bounds[1:] - bounds[:-1]).float()
+    log(f"  {label}: {n} segments, {float((lens == 0).float().mean()):.3f} "
+        f"empty, rows per segment p50 {float(lens.quantile(0.5)):.0f}, "
+        f"p99 {float(lens.quantile(0.99)):.0f}, max {int(lens.max())}")
     return dict(
         max_abs_err=err, use=f"{use} [{hi - lo}, {D}] into {n} segments",
-        ms=cuda_ms(lambda: rl.segment_sum(rows, bounds), iters=20),
+        **times(lambda: rl.segment_sum(rows, bounds), 20,
+                lib=lambda: torch.zeros((n, D), device=rows.device)
+                .index_add_(0, owner, used)),
         plain_ms=cuda_ms(lambda: rl.segment_sum_torch(rows, bounds), iters=5),
-        library_ms=cuda_ms(lambda: torch.zeros(
-            (n, D), device=rows.device).index_add_(0, owner, used), iters=20),
         bytes=((hi - lo) * D + n + 1 + n * D) * 4, flops=(hi - lo) * D)
 
 
@@ -521,26 +641,24 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
     rec["composite_bwd_rows"] = dict(
         kernel="composite_bwd", use="rows layout, ch=8",
         max_abs_err=err_rows,
-        ms=cuda_ms(lambda: rl.composite_bwd(*rargs, layout="rows"),
-                   iters=10),
+        **times(lambda: rl.composite_bwd(*rargs, layout="rows"), 10),
         plain_ms=cuda_ms(lambda: rl.composite_bwd_torch(*rargs,
                                                         layout="rows"),
                          iters=2),
         bytes=(R * packed.shape[1] + R + 2 * fwd_out.numel() + R * gc) * 4,
         flops=(int(pairs.hit) * (50 + 3 * ch + nc)
-               + int(pairs.gated) * GATED_PAIR_OPS),
-        library_ms=None)
+               + int(pairs.gated) * GATED_PAIR_OPS))
     del inst, rows_r
     rec["composite_bwd"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: rl.composite_bwd(*bargs), iters=10),
+        **times(lambda: rl.composite_bwd(*bargs), 10),
         plain_ms=cuda_ms(lambda: rl.composite_bwd_torch(*bargs), iters=2),
         bytes=(packed.numel() + 2 * R + 2 * fwd_out.numel() + R * gc) * 4,
         # per composited pair: ~36 for power, alpha, T and dL/dalpha, 2 ch
         # for f.g, 14 + ch for the pixel's 6 + ch values, nc for their sum
         flops=(int(pairs.hit) * (50 + 3 * ch + nc)
                + int(pairs.gated) * GATED_PAIR_OPS),
-        library_ms=None, pairs=pairs)
+        pairs=pairs)
 
     # B5 on B4's rows: 1e-6 of max|twin| (the twin sums in float64)
     bounds = rl.contiguous_bounds(binning.gauss_start, binning.num_rendered, R)
@@ -563,14 +681,15 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
         "B5 segment_sum on the KNN gather's rows", krows, kbounds, ids,
         "KNN group gather backward: sorted group rows")
     rec["segment_sum_knn"]["kernel"] = "segment_sum"
-    # its longest segment alone: one warp walks it serially (the groups
-    # past the valid anchors all point at value 0)
+    # its longest segment alone (the groups past the valid anchors all
+    # point at value 0): its tiles in parallel, then one span sum
     seg_len = kbounds[1:] - kbounds[:-1]
     i = int(torch.argmax(seg_len))
     one = kbounds[i:i + 2].contiguous()
-    alone_ms = cuda_ms(lambda: rl.segment_sum(krows, one), iters=20)
+    alone = times(lambda: rl.segment_sum(krows, one), 20)
     log(f"  B5 on the KNN rows: longest segment {int(seg_len[i])} rows "
-        f"(value {i}), alone {alone_ms:.4f} ms; median segment "
+        f"(value {i}), alone {alone['ms']:.4f} ms (device "
+        f"{fmt_ms(alone['device_ms'])} ms); median segment "
         f"{int(seg_len.median())} rows")
 
     # B8: 1e-6 of max|twin| (bitwise where the twin sums serially)
@@ -595,10 +714,10 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
     npix = coords.numel() // 2
     rec["grid_sample_bwd"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: gs.grid_sample_bwd(g_sky, coords, shape), iters=10),
+        **times(lambda: gs.grid_sample_bwd(g_sky, coords, shape), 10,
+                lib=lib),
         plain_ms=cuda_ms(lambda: gs.grid_sample_bwd_torch(g_sky, coords,
                                                           shape), iters=3),
-        library_ms=cuda_ms(lib, iters=10),
         # the gradient is dense: the whole grid is written once
         bytes=npix * 8 + C * npix * 4 + grid.numel() * 4,
         flops=4 * npix * (20 + 2 * C))
@@ -625,7 +744,7 @@ def lab_phase(dev, seed):
                                 twin, 1e-5 * scale))
     torch.cuda.synchronize()
     _kernels.reset_launches()
-    times = lab.main(["--seed", str(seed), "--device", str(dev)])
+    lab_ms = lab.main(["--seed", str(seed), "--device", str(dev)])
     torch.cuda.synchronize()
     launches = dict(_kernels.launches)
     nbytes = lab.variant_bytes(r)
@@ -636,9 +755,11 @@ def lab_phase(dev, seed):
                else lab.rm_blocks(src, r))
         recs[f"{v.kernel}:{v.form}:{v.operand}"] = dict(
             kernel=v.kernel, use=f"{v.form}, {v.label}", max_abs_err=err,
-            ms=times[v.label],
+            ms=lab_ms[v.label],
+            device_ms=device_ms(lambda: lab.run_variant(v, inp, r)),
             plain_ms=cuda_ms(lambda: lab.twin_variant(v, inp, r), iters=5),
             library_ms=cuda_ms(lambda: lab.library_block_sums(blk), iters=10),
+            library_device_ms=device_ms(lambda: lab.library_block_sums(blk)),
             bytes=nbytes, flops=r.covered * 128)
     return recs, launches
 
@@ -1031,15 +1152,7 @@ def profile_call(label, fn, args, top: int = 12) -> None:
         fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    attr = ("self_device_time_total"
-            if hasattr(events[0], "self_device_time_total")
-            else "self_cuda_time_total")
-    # device-side events only (kernels, copies): the CPU ops that launched
-    # them carry the same time again
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and getattr(e, attr) > 0]
+    kernels, attr = device_events(prof)
     if not kernels:
         log(f"# profile of {label}: the profiler recorded no device time")
         return
@@ -1144,22 +1257,7 @@ def run(dev, seed: int) -> list:
         f"{train_state.obj_near_idx.shape[1]}, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 4. kernel parity at the slices' shapes
-    log("# kernel parity")
-    rec = kernel_phase(cfg, params, state, env, rays, reqs[0], capacity)
-    backward_kernel_phase(rec, cfg, params, train_state, env, rays,
-                          train_cam, batch, capacity, seed)
-
-    # 5. the lab (E1, E2)
-    log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
-    lab_recs, lab_launches = lab_phase(dev, seed)
-    log(f"# lab launches {lab_launches}")
-    check_launched("lab", lab_launches, LAB_KERNELS)
-    for r in lab_recs.values():
-        r["launches"] = lab_launches[r["kernel"]]
-    rec.update(lab_recs)
-
-    # 6. the serving path
+    # 4. the serving path
     torch.cuda.reset_peak_memory_stats()
     outs, marks, serve_launches = serve_phase(cfg, params, state, env, rays,
                                               reqs, capacity)
@@ -1178,7 +1276,7 @@ def run(dev, seed: int) -> list:
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del outs, plain
 
-    # 7. cli.render from a saved checkpoint, both layouts
+    # 5. cli.render from a saved checkpoint, both layouts
     cli = cli_phase(cfg, params, state, env, cams, camera_poses(), seed, dev)
     check_launched("cli.render (gather)", cli["gather"][1], SERVING_KERNELS)
     check_launched("cli.render (rows)", cli["rows"][1],
@@ -1188,10 +1286,8 @@ def run(dev, seed: int) -> list:
     for layout, (res, _) in cli.items():
         log(f"# cli.render FPS, layout {layout}: train "
             f"{res['train']['FPS']:.3f}, test {res['test']['FPS']:.3f}")
-    rec["pad_lanes"]["launches"] = cli["rows"][1]["pad_lanes"]
-    rec["composite_fwd_rows"]["launches"] = cli["rows"][1]["composite_fwd"]
 
-    # 8. serving in both layouts, in turns (gather, rows, ...)
+    # 6. serving in both layouts, in turns (gather, rows, ...)
     ab = {"gather": [], "rows": []}
     for i in range(AB_ROUNDS):
         for layout in ab:
@@ -1206,7 +1302,7 @@ def run(dev, seed: int) -> list:
                 raise AssertionError("B6 launched by the gather layout")
             ab[layout] += m
 
-    # 9. the training path
+    # 7. the training path
     step = make_step(cfg, capacity)
     start = (params, env, init_adam(TrainableState(params, env)),
              train_state)
@@ -1228,7 +1324,7 @@ def run(dev, seed: int) -> list:
                  what="rows-layout step vs gather-layout step")
     del first
 
-    # 10. training in both layouts, in turns
+    # 8. training in both layouts, in turns
     train_ab = {"gather": [], "rows": []}
     for i in range(AB_ROUNDS):
         for layout, st in (("gather", step), ("rows", step_rows)):
@@ -1242,7 +1338,29 @@ def run(dev, seed: int) -> list:
                            + (("pad_lanes",) if layout == "rows" else ()))
             train_ab[layout] += m
             if layout == "rows":
-                rec["composite_bwd_rows"]["launches"] = lc["composite_bwd"]
+                rows_bwd_launches = lc["composite_bwd"]
+
+    # 9. kernel parity at the slices' shapes, after the timed paths (the
+    # profiler sessions of the kernels' device times run here)
+    log("# kernel parity")
+    rec = kernel_phase(cfg, params, state, env, rays, reqs[0], capacity,
+                       seed)
+    backward_kernel_phase(rec, cfg, params, train_state, env, rays,
+                          train_cam, batch, capacity, seed)
+    segment_sum_cases(dev, seed)
+
+    # 10. the lab (E1, E2)
+    log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
+    lab_recs, lab_launches = lab_phase(dev, seed)
+    log(f"# lab launches {lab_launches}")
+    check_launched("lab", lab_launches, LAB_KERNELS)
+    for r in lab_recs.values():
+        r["launches"] = lab_launches[r["kernel"]]
+    rec.update(lab_recs)
+
+    rec["pad_lanes"]["launches"] = cli["rows"][1]["pad_lanes"]
+    rec["composite_fwd_rows"]["launches"] = cli["rows"][1]["composite_fwd"]
+    rec["composite_bwd_rows"]["launches"] = rows_bwd_launches
 
     # 11. times
     report_marks("frame", marks)
@@ -1274,13 +1392,19 @@ def run(dev, seed: int) -> list:
             launches=r.get("launches", launches[name]),
             serve_launches=serve_launches[name],
             max_abs_err=r["max_abs_err"], max_abs_diff=r["max_abs_err"],
-            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=max(t_bytes, t_ops),
+            ms=r["ms"], kernel_ms=r["ms"], device_ms=r["device_ms"],
+            plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=r["library_ms"])
+            library_ms=r["library_ms"],
+            library_device_ms=r["library_device_ms"])
         if "use" in r:
             entry["use"] = r["use"]
         kernels.append(entry)
+        log(f"# {meta['id']} {r.get('use', name)}: {r['ms']:.4f} ms "
+            f"(device {fmt_ms(r['device_ms'])}), bound "
+            f"{entry['bound_ms']:.4f} ({entry['bound_by']}), library "
+            f"{fmt_ms(r['library_ms'])} (device "
+            f"{fmt_ms(r['library_device_ms'])}), plain {r['plain_ms']:.4f}")
     missing = set(KERNELS) - {k["name"] for k in kernels}
     if missing:
         raise AssertionError(f"no parity record for {sorted(missing)}")
