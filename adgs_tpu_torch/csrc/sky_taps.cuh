@@ -17,6 +17,22 @@
 
 namespace adgs {
 
+// the base tap (x0, y0) = (floor x, floor y) of a coordinate and its
+// fractions (wx, wy); every tap of the sample is (x0 + dx, y0 + dy) with
+// dx, dy in {0, 1}. NaN coordinates give NaN.
+__device__ __forceinline__ void sky_corner(float2 cxy, int Hg, int Wg,
+                                           float& x0, float& y0, float& wx,
+                                           float& wy) {
+  const float x = __fmul_rn(__fmul_rn(__fadd_rn(cxy.x, 1.0f), 0.5f),
+                            (float)(Wg - 1));
+  const float y = __fmul_rn(__fmul_rn(__fadd_rn(cxy.y, 1.0f), 0.5f),
+                            (float)(Hg - 1));
+  x0 = floorf(x);
+  y0 = floorf(y);
+  wx = __fsub_rn(x, x0);
+  wy = __fsub_rn(y, y0);
+}
+
 // cell index (yi * Wg + xi, clipped) and weight of each of the 4 taps;
 // inb[t] is false for a tap off the grid (its weight is 0). Index is
 // int32_t where the caller has checked Hg * Wg < 2^31, else int64_t.
@@ -24,14 +40,8 @@ template <typename Index>
 __device__ __forceinline__ void sky_taps(float2 cxy, int Hg, int Wg,
                                          Index idx[4], float w[4],
                                          bool inb[4]) {
-  const float x = __fmul_rn(__fmul_rn(__fadd_rn(cxy.x, 1.0f), 0.5f),
-                            (float)(Wg - 1));
-  const float y = __fmul_rn(__fmul_rn(__fadd_rn(cxy.y, 1.0f), 0.5f),
-                            (float)(Hg - 1));
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float wx = __fsub_rn(x, x0);
-  const float wy = __fsub_rn(y, y0);
+  float x0, y0, wx, wy;
+  sky_corner(cxy, Hg, Wg, x0, y0, wx, wy);
   const float ux = __fsub_rn(1.0f, wx);
   const float uy = __fsub_rn(1.0f, wy);
 

@@ -139,9 +139,10 @@ def block_sums_cm(inst_cm: torch.Tensor, p: Programs) -> torch.Tensor:
 def block_sums_rm(inst: torch.Tensor, p: Programs,
                   staged: bool = False) -> torch.Tensor:
     """Kernel E2 on a CUDA tensor (row-major [L, width], width 16 or 128,
-    L >= covered): staged through shared memory as [16, 256] (the JAX
-    rm_kernel) or read row by row (rm_notrans_kernel); its plain twin on a
-    CPU tensor."""
+    L >= covered, rows 16-byte aligned): staged through a two-slot
+    shared-memory ring by asynchronous copies and read as [16, 256] (the
+    JAX rm_kernel and its two-slot DMA) or read row by row
+    (rm_notrans_kernel); its plain twin on a CPU tensor."""
     if inst.device.type == "cpu":
         return block_sums_rm_torch(inst, p)
     if inst.dim() != 2 or inst.shape[1] not in (16, 128) \

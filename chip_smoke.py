@@ -40,7 +40,11 @@ Phases (any failure exits non-zero before the last line is printed):
      training step's inputs with N(0,1) cotangents, B4 compositing
      backward (rtol 1e-3, atol 1e-5 max|twin|), B5 segment sum on B4's
      rows and on the KNN gather's sorted rows, and B8 sky scatter (1e-6
-     of max|twin|); B5 also on synthetic bounds (a 100,000-row segment,
+     of max|twin| of the scatter twin, bitwise against the rendition of
+     its own order and a second launch; also on off-grid/NaN coords, on
+     taps across the last column, on bases at x0 = -1 and y0 = -1, and at
+     C = 1; its device time logged by part beside F.grid_sample's
+     gradient); B5 also on synthetic bounds (a 100,000-row segment,
      all segments empty, bounds[0] > 0 with bounds[n] < R; D in 1, 3,
      16, 33, 98), each case launched twice and bitwise equal; in the rows
      instance layout (ADGS_RM=1), B6 lane pad bitwise against its twin
@@ -692,16 +696,21 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
         f"{fmt_ms(alone['device_ms'])} ms); median segment "
         f"{int(seg_len.median())} rows")
 
-    # B8: 1e-6 of max|twin| (bitwise where the twin sums serially)
+    # B8: bitwise against the rendition of its own order, 1e-6 of
+    # max|twin| against the scatter twin (index_add_, atomics on the card),
+    # a second launch bitwise; on the step's coords, on off-grid and NaN
+    # coords, on a field whose taps cross the grid's last column and rows,
+    # and at C = 1
     C = grid.shape[0]
+    shape = tuple(grid.shape)
     g_sky = torch.randn((C,) + tuple(coords.shape[:-1]), generator=gen,
                         device=grid.device)
-    shape = tuple(grid.shape)
+    err = check_sky_scatter("step's sky coords", g_sky, coords, shape)
+    for label, c in sky_coord_cases(coords, shape, gen):
+        check_sky_scatter(label, g_sky, c, shape)
+        check_sky_scatter(label + ", C=1", g_sky[:1].contiguous(), c,
+                          (1,) + shape[1:])
     d_grid = gs.grid_sample_bwd(g_sky, coords, shape)
-    d_plain = gs.grid_sample_bwd_torch(g_sky, coords, shape)
-    scale = float(d_plain.abs().max())
-    err = check_close("B8 grid_sample_bwd", d_grid, d_plain, 1e-6 * scale,
-                      1e-6)
     leaf = grid.detach().clone().requires_grad_(True)
     out = F.grid_sample(leaf[None], coords[None], align_corners=True,
                         padding_mode="zeros")
@@ -711,6 +720,8 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
 
     check_close("B8 vs the grid gradient of torch grid_sample (yardstick)",
                 d_grid, lib()[0], 1e-4)
+    del d_grid
+    sky_scatter_breakdown(g_sky, coords, shape, lib)
     npix = coords.numel() // 2
     rec["grid_sample_bwd"] = dict(
         max_abs_err=err,
@@ -721,6 +732,116 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
         # the gradient is dense: the whole grid is written once
         bytes=npix * 8 + C * npix * 4 + grid.numel() * 4,
         flops=4 * npix * (20 + 2 * C))
+
+
+def sky_coord_cases(coords, shape, gen):
+    """B8's extra coordinate fields, of the step's coords' shape: uniform
+    in [-1.2, 1.2] with 5% NaN (taps off the grid, NaN bases); uniform in
+    [-1, 1] with every 16th pixel within a few cells of the right edge
+    (taps that cross the last column or leave the grid; every 7th of them
+    on x = 1) and every 16th (offset 4) on y = +-1; uniform in [-1, 1]
+    with every 16th pixel just left of x = -1 and every 16th (offset 8)
+    on the top or bottom row (bases at x0 = -1, y0 = -1 and y0 = Hg - 1).
+    Edge pixels are spread along their edge, so a base holds a few of
+    them, as a sky's rays do."""
+    import torch
+    _, Hg, Wg = shape
+    dev = coords.device
+
+    def unif(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    def field(lo, hi):
+        n = coords.numel() // 2
+        return torch.stack([unif(n, lo, hi), unif(n, lo, hi)], -1)
+
+    wild = field(-1.2, 1.2)
+    wild[torch.rand(wild.shape, generator=gen, device=dev) < 0.05] = \
+        float("nan")
+    right = field(-1.0, 1.0)
+    edge = right[::16]
+    edge[:, 0] = unif(edge.shape[0], 1 - 4 / (Wg - 1), 1 + 1 / (Wg - 1))
+    edge[::7, 0] = 1.0
+    edge = right[4::16]
+    edge[:, 1] = torch.where(unif(edge.shape[0], 0, 1) < 0.5, -1.0, 1.0)
+    corner = field(-1.0, 1.0)
+    edge = corner[::16]
+    edge[:, 0] = unif(edge.shape[0], -1 - 1 / (Wg - 1), -1.0)
+    edge = corner[8::16]
+    ny = edge.shape[0]
+    edge[:, 1] = torch.where(unif(ny, 0, 1) < 0.5,
+                             unif(ny, -1 - 1 / (Hg - 1), -1.0),
+                             unif(ny, 1.0, 1 + 1 / (Hg - 1)))
+    return [(label, f.reshape(coords.shape).contiguous())
+            for label, f in (("off-grid and NaN coords", wild),
+                             ("taps across the last column", right),
+                             ("bases at x0 = -1, y0 = -1 and y0 = Hg - 1",
+                              corner))]
+
+
+def check_sky_scatter(label, g, coords, shape) -> float:
+    """B8 on (g, coords) bitwise against grid_sample_bwd_pixel_order (its
+    own order, deterministic) and against a second launch, and within
+    1e-6 of max|twin| of the scatter twin. Returns that difference."""
+    from adgs_tpu_torch.ops import grid_sample as gs
+    d_grid = gs.grid_sample_bwd(g, coords, shape)
+    check_bitwise(f"B8 {label}, second launch",
+                  gs.grid_sample_bwd(g, coords, shape), d_grid)
+    check_bitwise(f"B8 {label} vs its order's twin", d_grid,
+                  gs.grid_sample_bwd_pixel_order(g, coords, shape))
+    d_plain = gs.grid_sample_bwd_torch(g, coords, shape)
+    scale = float(d_plain.abs().max())
+    return check_close(f"B8 {label} vs the scatter twin", d_grid, d_plain,
+                       1e-6 * scale, 1e-6)
+
+
+# B8's parts, by the names of the device kernels they launch; the order
+# is torch.sort's: its radix passes, its memset, the copy of its keys and
+# its index fill; F.grid_sample's gradient sums with its bilinear sampler
+# kernel and zeroes the grid with cuDNN's scalePackedTensor
+SKY_PARTS = (("keys", ("pixel_keys",)),
+             ("order", ("Radix", "fill_reverse_indices", "Memset",
+                        "Memcpy")),
+             ("values", ("tap_values",)),
+             ("sum+fill", ("sum_fill",)),
+             ("sum", ("bilinear_sampler",)),
+             ("fill", ("FillFunctor", "scalePackedTensor")))
+
+
+def kernel_split(fn, calls: int = 5) -> dict:
+    """{device kernel name: device ms per call} of fn() from one
+    torch.profiler session over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, attr = device_events(prof)
+    return {e.key: getattr(e, attr) / 1e3 / calls for e in kernels}
+
+
+def sky_scatter_breakdown(g, coords, shape, lib) -> None:
+    """Log B8's device time per call split by its parts (SKY_PARTS), each
+    kernel named, and beside it that of lib (the grid gradient of
+    F.grid_sample)."""
+    from adgs_tpu_torch.ops import grid_sample as gs
+    for what, fn in (("B8", lambda: gs.grid_sample_bwd(g, coords, shape)),
+                     ("F.grid_sample grid gradient", lib)):
+        split = kernel_split(fn)
+        parts = {}
+        for name, ms in split.items():
+            part = next((p for p, keys in SKY_PARTS
+                         if any(k in name for k in keys)), "other")
+            parts[part] = parts.get(part, 0.0) + ms
+        log(f"# {what} device ms per call by part: total "
+            f"{sum(split.values()):.4f}; " + json.dumps(
+                {k: round(v, 4) for k, v in parts.items()}))
+        for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+            log(f"#   {ms:.4f} ms  {name[:100]}")
 
 
 def lab_phase(dev, seed):
