@@ -30,12 +30,16 @@
 // threads per program, one thread per instance of a chunk; in mode 1 the
 // copies of the next chunk are in flight while a chunk is relaid out and
 // summed. Each thread keeps the 64 partial sums in registers over the
-// program's chunks; the block then sums them by warp shuffles and through
-// shared memory in a fixed order and writes the [8, 8] result once:
-// deterministic, no atomics.
+// program's chunks; each warp then reduce-scatters them
+// (warp_reduce.cuh: 62 shuffles, where a butterfly per value took 320), so
+// lane L holds the warp's sums of values 2L and 2L + 1, and the block adds
+// the 8 warps' sums through shared memory in a fixed order and writes the
+// [8, 8] result once: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_reduce.cuh"
 
 namespace {
 
@@ -43,7 +47,6 @@ constexpr int kChunk = 256;
 constexpr int kVals = 16;
 constexpr int kOut = 64;
 constexpr int kWarps = kChunk / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSlots = 2;          // mode 1's ring of staged chunks
 constexpr int kGran = kVals / 4;   // 16-byte granules of a row's 16 values
 
@@ -167,13 +170,8 @@ block_sums_kernel(const float* __restrict__ src, long long ld, int per,
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < kOut; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    if (lane == 0) s_red[warp][k] = v;
-  }
+  adgs::reduce_scatter<kOut>(acc, lane);
+  reinterpret_cast<float2*>(s_red[warp])[lane] = make_float2(acc[0], acc[1]);
   __syncthreads();
   if (tid < kOut) {
     float s = 0.0f;

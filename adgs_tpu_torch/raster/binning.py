@@ -38,7 +38,11 @@ class Binning(NamedTuple):
     num_rendered: torch.Tensor  # 0-d int32 (true count, may exceed R)
     overflow: torch.Tensor      # 0-d bool
     slot_sorted: torch.Tensor   # [R] int32 presort slot per sorted instance;
-    #                             padding holds R
+    #                             padding holds R. The valid instances are
+    #                             the first total = tile_start[T-1] +
+    #                             tile_count[T-1] sorted ones and own exactly
+    #                             the presort slots 0 .. total-1 (B4 zeroes
+    #                             the gradient rows past them on that rule)
     gauss_start: torch.Tensor   # [N] int32 exclusive prefix sum of tiles
 
 

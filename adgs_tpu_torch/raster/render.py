@@ -10,7 +10,8 @@ on CUDA tensors and runs the twin on CPU tensors:
     blended [T, ch, 256] and final_t [T, 256], the JAX kernel's layout;
   - B4 `composite_bwd` (csrc/composite_bwd.cu) / `composite_bwd_torch`:
     the front-to-back replay -> one gradient row per instance, written to
-    its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch));
+    its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch)); its
+    blocks take the tiles longest first;
   - B5 `segment_sum` (csrc/segment_sum.cu) / `segment_sum_torch`: the sum
     of each segment of contiguous rows; `segment_reduce_contiguous` turns
     B4's presort rows into per-Gaussian gradients;
@@ -96,6 +97,7 @@ class PairCounts(NamedTuple):
     """(instance, pixel) pairs the sequential compositing loop evaluates."""
     hit: torch.Tensor    # composited: alpha > 0, before the pixel's stop
     gated: torch.Tensor  # alpha gated to 0, plus the pair that stops a pixel
+    reach: torch.Tensor  # [T] a tile's instances up to its last pixel's stop
 
 
 class _TileBatch(NamedTuple):
@@ -163,7 +165,8 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
 
     count_pairs=True also returns the PairCounts of the pairs the
     sequential loop evaluates: each pixel's instances up to and including
-    the one that ends it, split into composited and gated pairs."""
+    the one that ends it, split into composited and gated pairs, and per
+    tile the most any of its pixels evaluates."""
     _check_layout(layout)
     T = tile_start.shape[0]
     F = F_GEOM + _round8(ch)
@@ -171,6 +174,7 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     final_t = packed.new_ones((T, TILE_PIX))
     hit = torch.zeros((), dtype=torch.int64, device=packed.device)
     gated = torch.zeros((), dtype=torch.int64, device=packed.device)
+    reach = torch.zeros((T,), dtype=torch.int64, device=packed.device)
     for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
         cnt = tile_count[lo:hi].long()
         m = int(cnt.max()) if hi > lo else 0
@@ -189,8 +193,9 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
             ended = n_inc < cnt[:, None]
             hit += n_hit.sum()
             gated += (n_inc - n_hit + ended.long()).sum()
+            reach[lo:hi] = n_inc.max(-1).values
     if count_pairs:
-        return blended, final_t, PairCounts(hit, gated)
+        return blended, final_t, PairCounts(hit, gated, reach)
     return blended, final_t
 
 
@@ -305,23 +310,54 @@ def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
         return composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
                                    tile_start, tile_count, grid_x, fwd_out,
                                    g_out, layout=layout)
-    ld = _kernel_src(packed, ch, gauss_id, layout, "composite_bwd")
     T = tile_start.shape[0]
     R = gauss_id.shape[0]
+    # every row is written by the kernel: no zero fill
+    rows = torch.empty((R, grad_cols(ch)), dtype=torch.float32,
+                       device=packed.device)
+    order = torch.empty((T,), dtype=torch.int32, device=packed.device)
+    return composite_bwd_into(rows, order, packed, ch, gauss_id, slot_sorted,
+                              tile_start, tile_count, grid_x, fwd_out, g_out,
+                              layout=layout)
+
+
+def composite_bwd_into(rows: torch.Tensor, order: torch.Tensor,
+                       packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
+                       slot_sorted: torch.Tensor, tile_start: torch.Tensor,
+                       tile_count: torch.Tensor, grid_x: int,
+                       fwd_out: torch.Tensor, g_out: torch.Tensor,
+                       layout: str = "gather") -> torch.Tensor:
+    """`composite_bwd` into the caller's buffers, so that a check can see
+    what the kernel writes: every row of `rows` [R, gc] (whatever it held
+    before), and in `order` [T] int32 the order its blocks take the tiles
+    in (by descending instance count, ties in tile order; each tile's rows
+    are the same in any order). On CPU tensors: the plain twin's rows and a
+    stable sort of the counts."""
+    T = tile_start.shape[0]
+    R = gauss_id.shape[0]
+    gc = grad_cols(ch)
+    if packed.device.type == "cpu":
+        rows.copy_(composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
+                                       tile_start, tile_count, grid_x,
+                                       fwd_out, g_out, layout=layout))
+        order.copy_(torch.sort(tile_count, descending=True,
+                               stable=True).indices)
+        return rows
+    ld = _kernel_src(packed, ch, gauss_id, layout, "composite_bwd")
     _kernels.require(gauss_id, "gauss_id", torch.int32, (R,))
     _kernels.require(slot_sorted, "slot_sorted", torch.int32, (R,))
     _kernels.require(tile_start, "tile_start", torch.int32, (T,))
     _kernels.require(tile_count, "tile_count", torch.int32, (T,))
     _kernels.require(fwd_out, "fwd_out", torch.float32, (T, ch + 1, TILE_PIX))
     _kernels.require(g_out, "g_out", torch.float32, (T, ch + 1, TILE_PIX))
-    gc = grad_cols(ch)
-    rows = torch.zeros((R, gc), dtype=torch.float32, device=packed.device)
+    _kernels.require(rows, "rows", torch.float32, (R, gc))
+    _kernels.require(order, "order", torch.int32, (T,))
     fn = _kernels.entry("composite_bwd", "adgs_composite_bwd",
-                        "piippppiiippipp")
+                        "piipppppiiippiipp")
     err = fn(packed.data_ptr(), ld, int(layout == "rows"), gauss_id.data_ptr(),
              slot_sorted.data_ptr(), tile_start.data_ptr(),
-             tile_count.data_ptr(), T, grid_x, ch, fwd_out.data_ptr(),
-             g_out.data_ptr(), gc, rows.data_ptr(),
+             tile_count.data_ptr(), order.data_ptr(), T, grid_x, ch,
+             fwd_out.data_ptr(), g_out.data_ptr(), gc, R, rows.data_ptr(),
              _kernels.stream(packed))
     _kernels.check(err, "composite_bwd")
     _kernels.launches["composite_bwd"] += 1

@@ -38,8 +38,15 @@ Phases (any failure exits non-zero before the last line is printed):
      bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample bitwise
      (a served frame's coords, off-grid and NaN coords, and C=1); on the
      training step's inputs with N(0,1) cotangents, B4 compositing
-     backward (rtol 1e-3, atol 1e-5 max|twin|), B5 segment sum on B4's
-     rows and on the KNN gather's sorted rows, and B8 sky scatter (1e-6
+     backward (rtol 1e-3, atol 1e-5 max|twin|, written into a buffer
+     of NaN, the rows past the valid instances bitwise zero; its tile
+     order bitwise against a stable sort of the counts; the tiles'
+     instance counts logged: mean, p99, max, and the whole-tile exits;
+     and, with every opacity at 0.99 and every splat 8x wider, its
+     whole-tile exit: every row written, those past the exit zeros, both
+     layouts bitwise),
+     B5 segment sum on B4's rows and on the KNN gather's sorted rows,
+     and B8 sky scatter (1e-6
      of max|twin| of the scatter twin, bitwise against the rendition of
      its own order and a second launch; also on off-grid/NaN coords, on
      taps across the last column, on bases at x0 = -1 and y0 = -1, and at
@@ -52,8 +59,9 @@ Phases (any failure exits non-zero before the last line is printed):
      phase and the next run after the timed paths, so that their
      profiler sessions and allocations do not reach the timed steps;
  10. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
-     their twins at 1e-5 of max|twin|, then the ported lab at its
-     defaults with the launch counts reset just before;
+     their twins at 1e-5 of max|twin|, E1 also at one chunk a program
+     over a program count that is not a multiple of 8, then the ported
+     lab at its defaults with the launch counts reset just before;
  11. times with CUDA events: ms per frame and per training step and ms
      per stage, all read from events recorded inside the requests and
      steps themselves, peak device memory, a torch.profiler view of one
@@ -589,19 +597,14 @@ def segment_sum_record(label, rows, bounds, owner, use):
         bytes=((hi - lo) * D + n + 1 + n * D) * 4, flops=(hi - lo) * D)
 
 
-def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
-                          capacity, seed):
-    """B4, B5 and B8 against their plain twins on the training step's own
-    inputs (its camera, its ch=8 rows with the flow points at the batch's
-    flow time, its sky coords), with N(0,1) cotangents so that the rows
-    are O(1)."""
+def step_composite_inputs(cfg, params, state, cam, batch, capacity):
+    """The training step's compositing inputs: its settings, binning and
+    packed ch=8 rows (colour, depth, the flow points at the batch's flow
+    time, the object mask)."""
     import torch
-    import torch.nn.functional as F
     from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
     from adgs_tpu_torch.raster import render as rl
     from adgs_tpu_torch.raster.composite import depth_feature
-    from adgs_tpu_torch.ops import grid_sample as gs
-    from adgs_tpu_torch.train.losses import sorted_group_rows
 
     st, prep, binning = frame_inputs(cfg, params, state, cam, capacity)
     opac = torch.where(prep.visible, prep.opacity,
@@ -612,13 +615,115 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
     packed, _ = rl.pack_gaussian_rows(
         prep.mean2d, prep.conic, torch.log(torch.clamp(opac, min=rl.OP_FLOOR)),
         feats)
+    return st, binning, packed
+
+
+def tile_count_stats(tile_count) -> dict:
+    """Instances per tile: mean, p99 and max over the frame's tiles."""
+    c = tile_count.double()
+    return dict(tiles=int(c.numel()), mean=float(c.mean()),
+                p99=float(c.quantile(0.99)), max=int(c.max()))
+
+
+B4_BATCH = 128   # instances B4 stages at a time (csrc/composite_bwd.cu)
+
+
+def whole_tile_exits(reach, tile_count) -> dict:
+    """The tiles B4 leaves at a batch boundary before their last instance,
+    all their pixels stopped, and the rows it zeroes after them, as the
+    twin's replay has it (reach: a tile's instances up to its last pixel's
+    stop, PairCounts.reach)."""
+    base = (reach + B4_BATCH - 1) // B4_BATCH * B4_BATCH
+    left = (tile_count.long() - base).clamp(min=0)
+    return dict(tiles=int((left > 0).sum()), rows=int(left.sum()))
+
+
+def b4_buffers(binning, ch, device):
+    """B4's output buffers, the rows filled with NaN and the tile order
+    with -1, so that a row or a tile the kernel does not write fails its
+    check."""
+    import torch
+    from adgs_tpu_torch.raster import render as rl
+    R, T = binning.gauss_id.shape[0], binning.tile_count.shape[0]
+    return (torch.full((R, rl.grad_cols(ch)), float("nan"), device=device),
+            torch.full((T,), -1, dtype=torch.int32, device=device))
+
+
+def b4_exit_check(packed, binning, grid_x, ch, gen) -> None:
+    """B4's whole-tile exit and the zero rows it writes after it, which
+    the step's own inputs do not reach: the same instances with every
+    opacity at 0.99 and every splat 8x wider, so that a tile's pixels all
+    stop within its first batch. Into buffers of NaN, every row must be
+    written, and the rows of the instances a whole batch or more past the
+    exit that the twin's replay predicts must be exact zeros (only the
+    exit's tail writes them); the rows layout bitwise the gather layout's.
+    Not held to the twin: with most pixels stopping, the twin's log-space
+    transmittance and the kernel's running product may part on a stop
+    that falls within rounding of 1e-4."""
+    import torch
+    from adgs_tpu_torch.raster import render as rl
+    sat = packed.clone()
+    sat[:, 2:5] *= 1.0 / 64.0
+    sat[:, 5] = math.log(0.99)
+    fargs = (sat, ch, binning.gauss_id, binning.tile_start,
+             binning.tile_count, grid_x)
+    blended, final_t = rl.composite_fwd(*fargs)
+    fwd_out = torch.cat([blended, final_t[:, None]], 1).contiguous()
+    g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
+    bargs = (sat, ch, binning.gauss_id, binning.slot_sorted,
+             binning.tile_start, binning.tile_count, grid_x, fwd_out, g_out)
+    _, _, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True)
+    ex = whole_tile_exits(pairs.reach, binning.tile_count)
+    log(f"  B4 saturated: whole-tile exits (the twin's replay): "
+        f"{ex['tiles']} tiles, {ex['rows']} rows zeroed after them")
+    rows, order = b4_buffers(binning, ch, sat.device)
+    rl.composite_bwd_into(rows, order, *bargs)
+    written = bool(torch.isfinite(rows).all())
+    log(f"  B4 saturated: every row written: {'ok' if written else 'FAIL'}")
+    if not written:
+        raise AssertionError("B4 left rows unwritten")
+    total = int(binning.tile_start[-1] + binning.tile_count[-1])
+    tid = binning.tile_id[:total].long()
+    j = (torch.arange(total, device=sat.device)
+         - binning.tile_start.long()[tid])
+    past = (pairs.reach + 2 * B4_BATCH - 1) // B4_BATCH * B4_BATCH
+    far = binning.slot_sorted[:total][j >= past[tid]].long()
+    if far.numel() == 0:
+        raise AssertionError("B4 saturated: no instance past an exit")
+    check_bitwise(f"B4 saturated: the {far.numel()} rows a batch or more "
+                  "past the exit are zeros", rows[far],
+                  torch.zeros_like(rows[far]))
+    inst = rl.build_instances_rows(binning.gauss_id, sat)
+    rows_r, order = b4_buffers(binning, ch, sat.device)
+    rl.composite_bwd_into(rows_r, order, inst, *bargs[1:], layout="rows")
+    check_bitwise("B4 saturated: rows layout vs gather layout", rows_r, rows)
+
+
+def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
+                          capacity, seed):
+    """B4, B5 and B8 against their plain twins on the training step's own
+    inputs (its camera, its ch=8 rows with the flow points at the batch's
+    flow time, its sky coords), with N(0,1) cotangents so that the rows
+    are O(1)."""
+    import torch
+    import torch.nn.functional as F
+    from adgs_tpu_torch.raster import render as rl
+    from adgs_tpu_torch.ops import grid_sample as gs
+    from adgs_tpu_torch.train.losses import sorted_group_rows
+
+    st, binning, packed = step_composite_inputs(cfg, params, state, cam,
+                                                batch, capacity)
     grid = env.grid
     coords = sky_coords(rays, cam)
     gen = torch.Generator(device=grid.device).manual_seed(seed)
 
     # B4: rtol 1e-3, atol 1e-5 max|twin| (the sums over a tile's 256
-    # pixels run in another order)
+    # pixels run in another order). It writes every row, so here it writes
+    # into buffers of NaN: a row it missed fails the check
     ch = 8
+    tc = tile_count_stats(binning.tile_count)
+    log(f"  B4 instances per tile over {tc['tiles']} tiles: mean "
+        f"{tc['mean']:.1f}, p99 {tc['p99']:.1f}, max {tc['max']}")
     fargs = (packed, ch, binning.gauss_id, binning.tile_start,
              binning.tile_count, st.grid_x)
     blended, final_t = rl.composite_fwd(*fargs)
@@ -626,18 +731,29 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
     g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
     bargs = (packed, ch, binning.gauss_id, binning.slot_sorted,
              binning.tile_start, binning.tile_count, st.grid_x, fwd_out, g_out)
-    rows = rl.composite_bwd(*bargs)
+    _, _, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True)
+    ex = whole_tile_exits(pairs.reach, binning.tile_count)
+    log(f"  B4 whole-tile exits (the twin's replay): {ex['tiles']} tiles, "
+        f"{ex['rows']} rows zeroed after them")
+    R, gc = binning.gauss_id.shape[0], rl.grad_cols(ch)
+    rows, order = b4_buffers(binning, ch, packed.device)
+    rl.composite_bwd_into(rows, order, *bargs)
+    check_bitwise("B4 tile order (longest first) vs a stable sort", order,
+                  torch.sort(binning.tile_count, descending=True,
+                             stable=True).indices.to(torch.int32))
+    total = int(binning.tile_start[-1] + binning.tile_count[-1])
+    check_bitwise(f"B4 rows past the {total} valid instances: zeros",
+                  rows[total:], torch.zeros_like(rows[total:]))
     rows_p = rl.composite_bwd_torch(*bargs)
     scale = float(rows_p.abs().max())
     err = check_close("B4 composite_bwd rows", rows, rows_p, 1e-5 * scale,
                       1e-3)
-    _, _, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True)
-    R, gc = rows.shape
     nc = rl.N_GEOM_GRAD + ch
     # the rows layout: bitwise the gather layout's rows
     inst = rl.build_instances_rows(binning.gauss_id, packed)
     rargs = (inst,) + bargs[1:]
-    rows_r = rl.composite_bwd(*rargs, layout="rows")
+    rows_r, order = b4_buffers(binning, ch, packed.device)
+    rl.composite_bwd_into(rows_r, order, *rargs, layout="rows")
     check_bitwise("B4 rows layout vs gather layout", rows_r, rows)
     err_rows = check_close("B4 rows layout vs its twin", rows_r,
                            rl.composite_bwd_torch(*rargs, layout="rows"),
@@ -663,6 +779,7 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
         flops=(int(pairs.hit) * (50 + 3 * ch + nc)
                + int(pairs.gated) * GATED_PAIR_OPS),
         pairs=pairs)
+    b4_exit_check(packed, binning, st.grid_x, ch, gen)
 
     # B5 on B4's rows: 1e-6 of max|twin| (the twin sums in float64)
     bounds = rl.contiguous_bounds(binning.gauss_start, binning.num_rendered, R)
@@ -863,6 +980,13 @@ def lab_phase(dev, seed):
         scale = float(twin.abs().max())
         errs.append(check_close(f"{KERNELS[v.kernel]['id']} {v.label}", got,
                                 twin, 1e-5 * scale))
+    # E1 also at one chunk a program, over about the same rows, with a
+    # program count that is not a multiple of 8 (7483 at the defaults)
+    p1 = lab.Programs(max(1, r.nprog * r.per - 5), 1)
+    twin = lab.block_sums_cm_torch(inp.inst_cm, p1)
+    check_close(f"E1 per=1, {p1.nprog} programs",
+                lab.block_sums_cm(inp.inst_cm, p1), twin,
+                1e-5 * float(twin.abs().max()))
     torch.cuda.synchronize()
     _kernels.reset_launches()
     lab_ms = lab.main(["--seed", str(seed), "--device", str(dev)])

@@ -63,6 +63,23 @@ def test_bin_gaussians_bitwise(rng, kind):
         assert 0.3 < 1.0 - live.mean() < 0.8
 
 
+@pytest.mark.parametrize("kind", ["normal", "dead", "overflow"])
+def test_valid_instances_own_first_slots(rng, kind):
+    """The rule B4 writes its gradient rows by: the valid instances are the
+    first tile_start[T-1] + tile_count[T-1] sorted ones, and their presort
+    slots are exactly 0 .. that total - 1; padding holds slot R."""
+    js, jp, capacity = _scene(rng, kind)
+    tb = tbin.bin_gaussians(_port_prep(jp), port_settings(js), capacity)
+    R = tb.slot_sorted.shape[0]
+    total = int(tb.tile_start[-1] + tb.tile_count[-1])
+    assert total == min(int(tb.num_rendered), R)
+    valid = tb.valid.numpy()
+    assert valid[:total].all() and not valid[total:].any()
+    slots = tb.slot_sorted.numpy()
+    np.testing.assert_array_equal(np.sort(slots[:total]), np.arange(total))
+    assert (slots[total:] == R).all()
+
+
 def _port_table(jp, dq):
     tiles = torch.as_tensor(np.array(jp.tiles_touched))
     offsets = torch.cumsum(tiles, 0, dtype=torch.int32)

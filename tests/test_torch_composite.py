@@ -90,12 +90,14 @@ def test_saturated_early_exit(rng):
         _packed(tprep), 4, tb.gauss_id, tb.tile_start, tb.tile_count,
         js.grid_x, count_pairs=True)
     assert int(pairs.hit + pairs.gated) < 0.9 * 256 * int(tb.tile_count.sum())
+    # and some tile's pixels all stopped before its last instance
+    assert bool((pairs.reach < tb.tile_count).any())
 
 
 def test_pair_count_and_batching(rng, monkeypatch):
     """Tile batching does not change the result; the pair counts (all
-    evaluated, and composited) equal a direct per-pixel walk of the
-    sequential loop."""
+    evaluated, composited, and each tile's reach) equal a direct per-pixel
+    walk of the sequential loop."""
     js, jp, jb, tprep, tb = _case(rng)
     F_rows = _packed(tprep)
     args = (F_rows, 4, tb.gauss_id, tb.tile_start, tb.tile_count, js.grid_x)
@@ -111,6 +113,7 @@ def test_pair_count_and_batching(rng, monkeypatch):
     gid = tb.gauss_id.numpy()
     p = np.arange(256)
     want = want_hit = 0
+    want_reach = np.zeros(js.num_tiles, np.int64)
     for tile in range(js.num_tiles):
         s, c = int(tb.tile_start[tile]), int(tb.tile_count[tile])
         px = (tile % js.grid_x) * 16 + p % 16
@@ -119,6 +122,8 @@ def test_pair_count_and_batching(rng, monkeypatch):
         live = np.ones(256, bool)
         for k in range(c):
             want += int(live.sum())
+            if live.any():
+                want_reach[tile] = k + 1
             r = rows[gid[s + k]]
             dx, dy = r[0] - px, r[1] - py
             power = -0.5 * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
@@ -131,4 +136,5 @@ def test_pair_count_and_batching(rng, monkeypatch):
             T = np.where(hit & ~stop, T * (1 - a), T)
     assert int(pairs.hit + pairs.gated) == want
     assert int(pairs.hit) == want_hit
+    np.testing.assert_array_equal(pairs.reach.numpy(), want_reach)
     assert 0 < want_hit < want

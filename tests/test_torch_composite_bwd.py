@@ -178,3 +178,32 @@ def test_segment_reduce_contiguous_clips_at_capacity(rng):
         lo, hi = min(start[i], R), min(start[i] + tiles[i], R)
         want[i] = rows[lo:hi].astype(np.float64).sum(0)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_bwd_matches_jax_vjp_long_tiles(rng):
+    """ch=8 on the saturated scene: tiles of more than 256 instances (B4
+    stages several batches of instances, and exits a whole tile at a batch
+    boundary once every pixel has stopped), against the JAX VJP."""
+    js, jp, jb, tprep, tb = _case(rng, saturated=True)
+    ch = 8
+    packed = _packed(tprep, _features(rng, tprep, ch))
+    counts = tb.tile_count.numpy()
+    assert counts.max() > 256
+    # the stop fires inside the long tiles: some of their instances are
+    # never reached, so their rows are exact zeros
+    reached = _reached(tb, packed, ch, js.grid_x)
+    start = tb.tile_start.numpy()
+    long_tiles = np.flatnonzero(counts > 256)
+    assert any(not reached[start[t]:start[t] + counts[t]].all()
+               for t in long_tiles)
+    gb, gt = _cotangents(rng, js.num_tiles, ch)
+    got = _port_grad(packed, tb, ch, js.grid_x, gb, gt)
+
+    bin_info = (jb.gauss_id, jb.slot_sorted, jb.tile_start, jb.tile_count,
+                jb.gauss_start, jb.num_rendered)
+    _, vjp = jax.vjp(lambda p: jpal.composite_packed(
+        p, bin_info, ch, js.num_tiles, js.grid_x), jnp.asarray(packed.numpy()))
+    (want,) = vjp(jpal._CompositeOut(blended=jnp.asarray(gb),
+                                     final_t=jnp.asarray(gt)))
+    assert float(np.abs(np.asarray(want)).max()) > 1e-3
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **BARS)
