@@ -62,6 +62,7 @@
 // only the staging load differs, so both layouts give bitwise equal rows.
 
 #include "composite_common.cuh"
+#include "tile_order.cuh"
 #include "warp_reduce.cuh"
 
 namespace {
@@ -76,10 +77,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = kThreads;         // instances staged at a time
 constexpr int kSub = 32;   // instances per round (one bit each in a mask)
 constexpr unsigned kAllDone = (1u << kPx) - 1;
-// below this, exp(log_opacity + power) < 1/255 for certain (ln(1/255) =
-// -5.5413; expf is within 2 ulp), so the pair is gated off as splat_alpha
-// would gate it
-constexpr float kLogAlphaMinSafe = -5.6f;
 
 // The warp sums of P values into dst[0 .. P): lane L holds value
 // L / (32 / P) after the reduce-scatter; one lane of each group writes it.
@@ -185,7 +182,7 @@ composite_bwd_kernel(const float* __restrict__ src, int ld,
           if (done & (1u << k)) continue;
           const float dy = __fsub_rn(q.y, py[k]);
           const float power = adgs::splat_power(a, b, c, dx, dy);
-          if (__fadd_rn(r.y, power) < kLogAlphaMinSafe) continue;
+          if (__fadd_rn(r.y, power) < adgs::kLogAlphaMinSafe) continue;
           float e;
           alpha[k] = adgs::splat_alpha(r.y, power, &e);
           if (alpha[k] > 0.0f) {
@@ -269,11 +266,8 @@ composite_bwd_kernel(const float* __restrict__ src, int ld,
         make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// The order in which B4's blocks take the tiles, and the zero rows past
-// the valid instances. Warp t ranks tile t: its position in the tiles by
-// descending instance count, ties in tile order, is the number of tiles
-// u with count[u] > count[t], or count[u] == count[t] and u < t (the
-// stable sort of `tile_order`'s plain twin). The valid instances hold the
+// The order in which B4's blocks take the tiles (tile_order.cuh), and
+// the zero rows past the valid instances. The valid instances hold the
 // presort slots 0 .. total - 1, total = tile_start[T - 1] + count[T - 1];
 // the grid zeroes rows total .. num_rows - 1.
 __global__ void __launch_bounds__(256)
@@ -281,18 +275,7 @@ tile_order_kernel(const int32_t* __restrict__ tile_start,
                   const int32_t* __restrict__ tile_count, int num_tiles,
                   int32_t* __restrict__ order, float4* __restrict__ rows4,
                   long long num_rows, int row_quads) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (t < num_tiles) {   // warp-uniform
-    const int ct = tile_count[t];
-    unsigned ahead = 0;
-    for (int u = lane; u < num_tiles; u += 32) {
-      const int cu = tile_count[u];
-      ahead += cu > ct || (cu == ct && u < t);
-    }
-    const unsigned rank = __reduce_add_sync(kWarpFull, ahead);
-    if (lane == 0) order[rank] = t;
-  }
+  adgs::rank_tiles(tile_count, num_tiles, order);
   const long long total =
       tile_start[num_tiles - 1] + tile_count[num_tiles - 1];
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -351,7 +334,7 @@ extern "C" int adgs_composite_bwd(const void* src, int ld, int rows,
   if (num_tiles <= 0)
     return (int)cudaMemsetAsync(r, 0, (size_t)num_rows * gc * sizeof(float),
                                 st);
-  tile_order_kernel<<<(num_tiles + 7) / 8, 256, 0, st>>>(
+  tile_order_kernel<<<adgs::rank_blocks(num_tiles), 256, 0, st>>>(
       ts, tc, num_tiles, to, reinterpret_cast<float4*>(r), num_rows, gc / 4);
   switch (ch) {
     case 1: launch<1>(rm, p, ld, gi, ss, ts, tc, to, num_tiles, grid_x, fo, go, r, st); break;

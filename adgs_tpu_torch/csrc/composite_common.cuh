@@ -21,6 +21,10 @@ constexpr int kGeom = 8;    // packed row: mx, my, a, b, c, log-opacity, pad, pa
 constexpr float kAlphaMax = 0.99f;
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kTEps = 1e-4f;
+// below this, exp(log_opacity + power) < 1/255 for certain (ln(1/255) =
+// -5.5413; expf is within 2 ulp), so the pair is gated off as splat_alpha
+// would gate it: both kernels skip the exp of such a pair
+constexpr float kLogAlphaMinSafe = -5.6f;
 
 // power = -0.5 (a dx^2 + c dy^2) - b dx dy, dx = mean.x - px
 __device__ __forceinline__ float splat_power(float a, float b, float c,

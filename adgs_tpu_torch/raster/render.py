@@ -8,6 +8,8 @@ on CUDA tensors and runs the twin on CPU tensors:
     per-Gaussian rows [N, F] (8 geometry columns: mean2d, conic,
     log-opacity, 2 pad; then ch features padded to a multiple of 8) ->
     blended [T, ch, 256] and final_t [T, 256], the JAX kernel's layout;
+    its blocks take the tiles longest first, and its warps skip the
+    instances that `quarter_masks_torch` rules out of their 8x8 quarter;
   - B4 `composite_bwd` (csrc/composite_bwd.cu) / `composite_bwd_torch`:
     the front-to-back replay -> one gradient row per instance, written to
     its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch)); its
@@ -50,6 +52,11 @@ PAD_BLK = 1024     # B6 pads N up to a multiple of this (the JAX block)
 LAYOUTS = ("gather", "rows")
 N_GEOM_GRAD = 6    # d mean2d (2), d conic (3), d log-opacity
 OP_FLOOR = 1e-37   # log(max(op, OP_FLOOR)) keeps dead slots finite
+# csrc/composite_common.cuh kLogAlphaMinSafe (the float -5.6f): below it
+# the 1/255 gate rules a pair out for certain
+LOG_ALPHA_MIN_SAFE = float(torch.tensor(-5.6, dtype=torch.float32))
+# csrc/composite_common.cuh kTEps (the float 1e-4f): the pixel's stop
+T_EPS_F32 = float(torch.tensor(composite_mod.T_EPS, dtype=torch.float32))
 # plain twins: elements of one [tiles, 256, instances] temporary
 PLAIN_BATCH_ELEMS = 1 << 25
 SEG_TILE_ROWS = 64   # rows of one of B5's tiles (csrc/segment_sum.cu)
@@ -98,6 +105,9 @@ class PairCounts(NamedTuple):
     hit: torch.Tensor    # composited: alpha > 0, before the pixel's stop
     gated: torch.Tensor  # alpha gated to 0, plus the pair that stops a pixel
     reach: torch.Tensor  # [T] a tile's instances up to its last pixel's stop
+    # of the gated pairs, those in (instance, quarter)s that B3's quarter
+    # culling rules out, so that B3 never evaluates them (0 without masks)
+    culled: torch.Tensor
 
 
 class _TileBatch(NamedTuple):
@@ -155,7 +165,8 @@ def _check_layout(layout: str) -> None:
 def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                         tile_start: torch.Tensor, tile_count: torch.Tensor,
                         grid_x: int, count_pairs: bool = False,
-                        layout: str = "gather"):
+                        layout: str = "gather",
+                        masks: Optional[torch.Tensor] = None):
     """Plain twin of kernel B3 (`packed` is the instance rows under
     layout "rows"): every tile's whole instance list at once,
     alpha gated as in the kernel and weights from composite.blend_weights
@@ -166,7 +177,8 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     count_pairs=True also returns the PairCounts of the pairs the
     sequential loop evaluates: each pixel's instances up to and including
     the one that ends it, split into composited and gated pairs, and per
-    tile the most any of its pixels evaluates."""
+    tile the most any of its pixels evaluates; with `masks`
+    (quarter_masks_torch's), also the gated pairs that the masks cull."""
     _check_layout(layout)
     T = tile_start.shape[0]
     F = F_GEOM + _round8(ch)
@@ -175,6 +187,7 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     hit = torch.zeros((), dtype=torch.int64, device=packed.device)
     gated = torch.zeros((), dtype=torch.int64, device=packed.device)
     reach = torch.zeros((T,), dtype=torch.int64, device=packed.device)
+    culled = torch.zeros((), dtype=torch.int64, device=packed.device)
     for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
         cnt = tile_count[lo:hi].long()
         m = int(cnt.max()) if hi > lo else 0
@@ -194,9 +207,105 @@ def composite_fwd_torch(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
             hit += n_hit.sum()
             gated += (n_inc - n_hit + ended.long()).sum()
             reach[lo:hi] = n_inc.max(-1).values
+            if masks is not None:
+                culled += (inc & (tb.alpha == 0.0)
+                           & ~_quarter_kept(masks, tb.idx)).sum()
     if count_pairs:
-        return blended, final_t, PairCounts(hit, gated, reach)
+        return blended, final_t, PairCounts(hit, gated, reach, culled)
     return blended, final_t
+
+
+def _quarter_kept(masks: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[G, P, M] bool: the quarter of pixel p is kept for instance idx[g, m]
+    by `masks` (quarter_masks_torch's)."""
+    pix = torch.arange(TILE_PIX, device=idx.device)
+    quarter = (pix % TILE_X >= 8).long() + 2 * (pix // TILE_X >= 8).long()
+    bits = masks[idx].long()                                  # [G, M]
+    return ((bits[:, None, :] >> quarter[None, :, None]) & 1).bool()
+
+
+def composite_final_t_serial(packed: torch.Tensor, ch: int,
+                             gauss_id: torch.Tensor, tile_start: torch.Tensor,
+                             tile_count: torch.Tensor, grid_x: int,
+                             layout: str = "gather") -> torch.Tensor:
+    """B3's final_t [T, 256] as its kernel computes it, for checks only:
+    per pixel the running product over the gated alphas of `_tile_alpha`
+    (the kernel's bits), pair by pair front to back, with next_t's
+    rounding and its stop (T (1 - alpha) below 1e-4 ends the pixel, the
+    pair not composited). Bit for bit the kernel's, where
+    composite_fwd_torch's log-space prefix sums agree only to ~1e-5: a
+    pair with alpha >= 1/255 that the kernel skipped changes its T by a
+    factor of at most 1 - 1/255, which a bitwise check cannot miss. One
+    step per instance of the longest tile of each batch."""
+    _check_layout(layout)
+    T = tile_start.shape[0]
+    F = F_GEOM + _round8(ch)
+    final_t = packed.new_ones((T, TILE_PIX))
+    for lo, hi in _tile_batches(tile_count, PLAIN_BATCH_ELEMS):
+        m = int(tile_count[lo:hi].max()) if hi > lo else 0
+        if m == 0:
+            continue
+        alpha = _tile_alpha(packed, F, gauss_id, tile_start, tile_count, lo,
+                            hi, m, grid_x, layout).alpha
+        t = final_t[lo:hi].clone()
+        live = torch.ones_like(t, dtype=torch.bool)
+        for a in alpha.permute(2, 0, 1).contiguous().unbind(0):
+            nt = t * (1.0 - a)
+            go = live & (a > 0.0)
+            stop = go & (nt < T_EPS_F32)
+            t = torch.where(go & ~stop, nt, t)
+            live = live & ~stop
+        final_t[lo:hi] = t
+    return final_t
+
+
+def quarter_masks_torch(packed: torch.Tensor, gauss_id: torch.Tensor,
+                        tile_start: torch.Tensor, tile_count: torch.Tensor,
+                        grid_x: int, layout: str = "gather") -> torch.Tensor:
+    """B3's quarter culling (csrc/composite.cu `quarter_mask`, which states
+    why it is exact), rendered in float64 for tests and checks: [R] int32,
+    for sorted instance r of tile t, bit q set unless no pixel of the 8x8
+    quarter (q % 2, q / 2) of tile t can pass the kLogAlphaMinSafe
+    pre-test; 0 for the instances past the valid ones."""
+    _check_layout(layout)
+    R = gauss_id.shape[0]
+    dev = packed.device
+    T = tile_start.shape[0]
+    total = int(tile_start[-1] + tile_count[-1]) if T else 0
+    tid = torch.repeat_interleave(torch.arange(T, device=dev),
+                                  tile_count.long())
+    if layout == "rows":
+        src = packed[:total]
+    else:
+        src = packed[gauss_id[:total].long()]
+    g = src[:, :6].double()
+    mx, my, a, b, c, lo = g.unbind(-1)
+    x0 = ((tid % grid_x) * TILE_X).double()
+    y0 = ((tid // grid_x) * TILE_Y).double()
+    det = a * c - b * b
+    ex = torch.maximum((mx - x0).abs(), (mx - (x0 + 15)).abs())
+    ey = torch.maximum((my - y0).abs(), (my - (y0 + 15)).abs())
+    e = torch.clamp(torch.maximum(ex, ey), min=1.0)
+    coef = torch.maximum(torch.maximum(a.abs(), b.abs()), c.abs())
+    keep_all = ~(torch.isfinite(g).all(-1) & (a > 0.0) & (det > 0.0)
+                 & (coef * e * e < 1e37))
+    t = lo - LOG_ALPHA_MIN_SAFE
+    s_max = a.abs() * ex * ex + c.abs() * ey * ey + 2.0 * b.abs() * ex * ey
+    tt = t + 4.0 * 2.0 ** -24 * s_max + 1e-4
+    hx = torch.sqrt(2.0 * tt * c / det) + 1.0
+    hy = torch.sqrt(2.0 * tt * a / det) + 1.0
+    mask = torch.zeros_like(tid)
+    for q in range(4):
+        qx = x0 + (q & 1) * 8
+        qy = y0 + (q >> 1) * 8
+        reach = ((mx + hx >= qx) & (mx - hx <= qx + 7.0) & (my + hy >= qy)
+                 & (my - hy <= qy + 7.0))
+        mask |= reach.long() << q
+    mask = torch.where(t < 0.0, torch.zeros_like(mask), mask)
+    mask = torch.where(keep_all, torch.full_like(mask, 0xF), mask)
+    out = torch.zeros(R, dtype=torch.int32, device=dev)
+    out[:total] = mask.to(torch.int32)
+    return out
 
 
 def _kernel_src(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
@@ -233,10 +342,11 @@ def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
     _kernels.require(tile_count, "tile_count", torch.int32, (T,))
     out = torch.empty((T, ch + 1, TILE_PIX), dtype=torch.float32,
                       device=packed.device)
-    fn = _kernels.entry("composite_fwd", "adgs_composite_fwd", "piipppiiipp")
+    order = torch.empty((T,), dtype=torch.int32, device=packed.device)
+    fn = _kernels.entry("composite_fwd", "adgs_composite_fwd", "piippppiiipp")
     err = fn(packed.data_ptr(), ld, int(layout == "rows"), gauss_id.data_ptr(),
-             tile_start.data_ptr(), tile_count.data_ptr(), T, grid_x, ch,
-             out.data_ptr(), _kernels.stream(packed))
+             tile_start.data_ptr(), tile_count.data_ptr(), order.data_ptr(), T,
+             grid_x, ch, out.data_ptr(), _kernels.stream(packed))
     _kernels.check(err, "composite_fwd")
     _kernels.launches["composite_fwd"] += 1
     return out[:, :ch, :], out[:, ch, :]

@@ -35,7 +35,12 @@ Phases (any failure exits non-zero before the last line is printed):
   8. training in both layouts in turns, AB_ROUNDS turns of 3 steps;
   9. kernel parity at the slices' shapes, each kernel against its plain
      PyTorch twin on the same inputs: B2 live compaction and B1 expansion
-     bitwise, B3 compositing 1e-4 at ch=4 and ch=8, B7 sky sample bitwise
+     bitwise (B1 also at a capacity below num_rendered), B3 compositing
+     1e-4 at ch=4 and ch=8 (on the served frame, and at ch=8 on the
+     training step's inputs) and its final T bitwise its serial replay
+     (render.py composite_final_t_serial: a single wrongly culled pair
+     fails it at any T; its quarter culling's share logged from its
+     rendition), B7 sky sample bitwise
      (a served frame's coords, off-grid and NaN coords, and C=1); on the
      training step's inputs with N(0,1) cotangents, B4 compositing
      backward (rtol 1e-3, atol 1e-5 max|twin|, written into a buffer
@@ -44,7 +49,8 @@ Phases (any failure exits non-zero before the last line is printed):
      instance counts logged: mean, p99, max, and the whole-tile exits;
      and, with every opacity at 0.99 and every splat 8x wider, its
      whole-tile exit: every row written, those past the exit zeros, both
-     layouts bitwise),
+     layouts bitwise; there B3 finite, final T in [1e-4, 1] and bitwise
+     its serial replay, both layouts bitwise),
      B5 segment sum on B4's rows and on the KNN gather's sorted rows,
      and B8 sky scatter (1e-6
      of max|twin| of the scatter twin, bitwise against the rendition of
@@ -67,8 +73,9 @@ Phases (any failure exits non-zero before the last line is printed):
      steps themselves, peak device memory, a torch.profiler view of one
      request and one step (top device ops, device busy share), and one
      JSON line ({"kernels": [...]}) with each kernel's launches on its
-     path (training; B6 and the rows B3 on cli.render's rows run, the
-     rows B4 on the rows training steps, E1/E2 in the lab), its time by
+     path (training; B3 at ch=4 on serving, B6 and the rows B3 on
+     cli.render's rows run, the rows B4 on the rows training steps, E1/E2
+     in the lab), its time by
      CUDA events over calls enqueued back to back and its device time per
      call (torch.profiler, a few calls), its plain twin's time, its bound
      and, where one PyTorch call computes the same function, that call's
@@ -304,6 +311,77 @@ def frame_inputs(cfg, params, state, cam, capacity: int):
     return st, prep, bin_gaussians(prep, st, capacity, backend="torch")
 
 
+def composite_rows(cfg, params, prep, flow_time, ch):
+    """A frame's packed compositing rows: colour and depth (ch=4), at ch=8
+    also the flow points at flow_time and the object mask."""
+    import torch
+    from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
+    from adgs_tpu_torch.raster import render as rl
+    from adgs_tpu_torch.raster.composite import depth_feature
+
+    opac = torch.where(prep.visible, prep.opacity,
+                       torch.zeros_like(prep.opacity))
+    feats = [prep.rgb, depth_feature(prep.depth, True)[:, None]]
+    if ch == 8:
+        feats += [deformed_xyz(params, cfg, flow_time),
+                  obj_mask(params).float()[:, None]]
+    packed, _ = rl.pack_gaussian_rows(
+        prep.mean2d, prep.conic, torch.log(torch.clamp(opac, min=rl.OP_FLOOR)),
+        torch.cat(feats, -1))
+    return packed
+
+
+def saturated_rows(packed):
+    """The saturated copy of packed rows: every opacity 0.99 and every
+    splat 8x wider, so that a tile's pixels all stop within its first
+    batch."""
+    sat = packed.clone()
+    sat[:, 2:5] *= 1.0 / 64.0
+    sat[:, 5] = math.log(0.99)
+    return sat
+
+
+def b3_flops(pairs, ch) -> int:
+    """B3's operations on this run's data: per composited pair 16 for
+    power and alpha, 3 for T and its test, 1 for the weight and 2 ch for
+    the blend; per gated pair GATED_PAIR_OPS, counted only in the
+    (instance, quarter)s that the quarter culling keeps (B3 never
+    evaluates the others)."""
+    return (int(pairs.hit) * (20 + 2 * ch)
+            + int(pairs.gated - pairs.culled) * GATED_PAIR_OPS)
+
+
+def check_final_t(name, got, serial) -> None:
+    """B3's final T bitwise its serial replay (render.py
+    composite_final_t_serial), which a single wrongly culled pair with
+    alpha >= 1/255 changes at any T: on a difference, how many pixels and
+    by how much (relative) are logged before the check fails."""
+    import torch
+    same = bool(torch.equal(got, serial))
+    msg = "bitwise equal"
+    if not same:
+        d = got != serial
+        rel = ((got - serial).abs() / serial.abs().clamp(min=1e-30))[d]
+        msg = (f"DIFFER at {int(d.sum())} of {d.numel()} pixels, max "
+               f"relative {float(rel.max()):.3e}")
+    log(f"  {name} vs its serial replay: {msg}")
+    if not same:
+        raise AssertionError(f"{name}: not bitwise its serial replay")
+
+
+def quarter_cull_log(what, masks, binning, pairs) -> None:
+    """The share of (instance, quarter)s and of gated pairs that B3's
+    quarter culling removes, by its rendition."""
+    total = int(binning.tile_start[-1] + binning.tile_count[-1])
+    kept = int(sum(((masks[:total] >> q) & 1).sum() for q in range(4)))
+    log(f"  B3 quarter culling on {what} (its rendition): {4 * total - kept} "
+        f"of {4 * total} (instance, quarter) pairs culled "
+        f"({100 * (4 * total - kept) / max(4 * total, 1):.1f}%), "
+        f"{int((masks[:total] == 0).sum())} of {total} instances whole; "
+        f"{int(pairs.culled)} of {int(pairs.gated)} gated (instance, pixel) "
+        "pairs never evaluated")
+
+
 def check_close(name, got, want, atol, rtol=0.0) -> float:
     import torch
     if got.shape != want.shape:
@@ -325,10 +403,8 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
     shapes; returns per-kernel records (error, times, bound)."""
     import torch
     import torch.nn.functional as F
-    from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
     from adgs_tpu_torch.raster import binning as bl
     from adgs_tpu_torch.raster import render as rl
-    from adgs_tpu_torch.raster.composite import depth_feature
     from adgs_tpu_torch.ops import grid_sample as gs
 
     st, prep, binning = frame_inputs(cfg, params, state, cam, capacity)
@@ -366,6 +442,12 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
         f"over {key_k.numel()} slots")
     if not same:
         raise AssertionError("B1 expansion disagrees with its plain twin")
+    # the drop path: a capacity below num_rendered
+    nr = int(offsets[-1])
+    drop = (table, n_live, offsets[-1], nr // 2) + args[4:]
+    check_bitwise(f"B1 expand vs its twin, capacity {nr // 2} < "
+                  f"num_rendered {nr} (the drop path)", bl.expand(*drop),
+                  bl.expand_torch(*drop))
     R = key_k.numel()
     rec["expand"] = dict(
         max_abs_err=0.0,
@@ -373,25 +455,28 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
         plain_ms=cuda_ms(lambda: bl.expand_torch(*args), iters=5),
         bytes=k * 32 + R * 12, flops=0)
 
-    # B3: compositing, ch=4 (serving) and ch=8 (+flow +semantic)
-    opac = torch.where(prep.visible, prep.opacity,
-                       torch.zeros_like(prep.opacity))
-    log_op = torch.log(torch.clamp(opac, min=rl.OP_FLOOR))
-    feats4 = torch.cat([prep.rgb, depth_feature(prep.depth, True)[:, None]], -1)
-    flow = deformed_xyz(params, cfg, cam.time + 0.01)
-    feats8 = torch.cat([feats4, flow, obj_mask(params).float()[:, None]], -1)
+    # B3: compositing, ch=4 (serving) and ch=8 (+flow +semantic); final T
+    # bitwise its serial replay (the same for both widths: only the
+    # features differ), which holds the quarter culling exactly
+    serial = masks = None
     err = err_rows = 0.0
-    for ch, feats in ((8, feats8), (4, feats4)):
-        packed, _ = rl.pack_gaussian_rows(prep.mean2d, prep.conic, log_op,
-                                          feats)
+    for ch in (8, 4):
+        packed = composite_rows(cfg, params, prep, cam.time + 0.01, ch)
         cargs = (packed, ch, binning.gauss_id, binning.tile_start,
                  binning.tile_count, st.grid_x)
+        if serial is None:
+            serial = rl.composite_final_t_serial(*cargs)
+            masks = rl.quarter_masks_torch(packed, binning.gauss_id,
+                                           binning.tile_start,
+                                           binning.tile_count, st.grid_x)
         bk, tk = rl.composite_fwd(*cargs)
-        bp, tp, pairs = rl.composite_fwd_torch(*cargs, count_pairs=True)
+        bp, tp, pairs = rl.composite_fwd_torch(*cargs, count_pairs=True,
+                                               masks=masks)
         err = max(err, check_close(f"B3 composite ch={ch} blended", bk, bp,
                                    1e-4, 1e-4),
                   check_close(f"B3 composite ch={ch} final_t", tk, tp,
                               1e-4, 1e-4))
+        check_final_t(f"B3 composite ch={ch} final_t", tk, serial)
         # the rows layout: the same kernel source, bitwise the gather's
         inst = rl.build_instances_rows(binning.gauss_id, packed)
         rargs = (inst,) + cargs[1:]
@@ -403,6 +488,8 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
             f"B3 rows layout ch={ch} blended vs its twin", br, bpr, 1e-4,
             1e-4), check_close(f"B3 rows layout ch={ch} final_t vs its twin",
                                tr, tpr, 1e-4, 1e-4))
+    quarter_cull_log("the served frame", masks, binning, pairs)
+    del serial, masks
     # times at the serving width (ch=4, the last packed above)
     T = binning.tile_start.shape[0]
     f_cols = packed.shape[1]
@@ -426,18 +513,13 @@ def kernel_phase(cfg, params, state, env, rays, cam, capacity, seed):
                          iters=2),
         # the F used columns of each instance row, ranges, output
         bytes=R * f_cols * 4 + T * 8 + T * 5 * 256 * 4,
-        flops=(int(pairs.hit) * (20 + 2 * ch)
-               + int(pairs.gated) * GATED_PAIR_OPS))
+        flops=b3_flops(pairs, ch))
     rec["composite_fwd"] = dict(
-        max_abs_err=err,
+        use="serving, ch=4", max_abs_err=err,
         **times(lambda: rl.composite_fwd(*cargs), 20),
         plain_ms=cuda_ms(lambda: rl.composite_fwd_torch(*cargs), iters=2),
         bytes=packed.numel() * 4 + R * 4 + T * 8 + T * 5 * 256 * 4,
-        # per composited pair: 16 for power and alpha, 3 for T and its
-        # test, 1 for the weight, 2 ch for the blend
-        flops=(int(pairs.hit) * (20 + 2 * ch)
-               + int(pairs.gated) * GATED_PAIR_OPS),
-        pairs=pairs)
+        flops=b3_flops(pairs, ch), pairs=pairs)
 
     # B7: sky sample on the full grid, bitwise its twin: at the frame's
     # coords; at coords in [-1.2, 1.2] with 5% NaN (taps off the grid get
@@ -601,21 +683,8 @@ def step_composite_inputs(cfg, params, state, cam, batch, capacity):
     """The training step's compositing inputs: its settings, binning and
     packed ch=8 rows (colour, depth, the flow points at the batch's flow
     time, the object mask)."""
-    import torch
-    from adgs_tpu_torch.models.gaussians import deformed_xyz, obj_mask
-    from adgs_tpu_torch.raster import render as rl
-    from adgs_tpu_torch.raster.composite import depth_feature
-
     st, prep, binning = frame_inputs(cfg, params, state, cam, capacity)
-    opac = torch.where(prep.visible, prep.opacity,
-                       torch.zeros_like(prep.opacity))
-    feats = torch.cat([prep.rgb, depth_feature(prep.depth, True)[:, None],
-                       deformed_xyz(params, cfg, batch.flow.time),
-                       obj_mask(params).float()[:, None]], -1)
-    packed, _ = rl.pack_gaussian_rows(
-        prep.mean2d, prep.conic, torch.log(torch.clamp(opac, min=rl.OP_FLOOR)),
-        feats)
-    return st, binning, packed
+    return st, binning, composite_rows(cfg, params, prep, batch.flow.time, 8)
 
 
 def tile_count_stats(tile_count) -> dict:
@@ -657,17 +726,30 @@ def b4_exit_check(packed, binning, grid_x, ch, gen) -> None:
     written, and the rows of the instances a whole batch or more past the
     exit that the twin's replay predicts must be exact zeros (only the
     exit's tail writes them); the rows layout bitwise the gather layout's.
-    Not held to the twin: with most pixels stopping, the twin's log-space
-    transmittance and the kernel's running product may part on a stop
-    that falls within rounding of 1e-4."""
+    B4 is not held to the twin: with most pixels stopping, the twin's
+    log-space transmittance and the kernel's running product may part on
+    a stop that falls within rounding of 1e-4. B3's final T is held
+    bitwise to its serial replay, which rounds as the kernel does."""
     import torch
     from adgs_tpu_torch.raster import render as rl
-    sat = packed.clone()
-    sat[:, 2:5] *= 1.0 / 64.0
-    sat[:, 5] = math.log(0.99)
+    sat = saturated_rows(packed)
     fargs = (sat, ch, binning.gauss_id, binning.tile_start,
              binning.tile_count, grid_x)
     blended, final_t = rl.composite_fwd(*fargs)
+    # B3 on the saturated copy: finite, T never below its stop, the rows
+    # layout bitwise the gather layout's
+    ok = (bool(torch.isfinite(blended).all())
+          and bool(((final_t >= 1e-4) & (final_t <= 1.0)).all()))
+    log(f"  B3 saturated: outputs finite, final T in [1e-4, 1]: "
+        f"{'ok' if ok else 'FAIL'} (min T {float(final_t.min()):.3e})")
+    if not ok:
+        raise AssertionError("B3 on the saturated copy: bad outputs")
+    check_final_t("B3 saturated final_t", final_t,
+                  rl.composite_final_t_serial(*fargs))
+    inst = rl.build_instances_rows(binning.gauss_id, sat)
+    check_bitwise("B3 saturated: rows layout vs gather layout",
+                  rl.composite_fwd(inst, *fargs[1:], layout="rows"),
+                  (blended, final_t))
     fwd_out = torch.cat([blended, final_t[:, None]], 1).contiguous()
     g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
     bargs = (sat, ch, binning.gauss_id, binning.slot_sorted,
@@ -693,7 +775,6 @@ def b4_exit_check(packed, binning, grid_x, ch, gen) -> None:
     check_bitwise(f"B4 saturated: the {far.numel()} rows a batch or more "
                   "past the exit are zeros", rows[far],
                   torch.zeros_like(rows[far]))
-    inst = rl.build_instances_rows(binning.gauss_id, sat)
     rows_r, order = b4_buffers(binning, ch, sat.device)
     rl.composite_bwd_into(rows_r, order, inst, *bargs[1:], layout="rows")
     check_bitwise("B4 saturated: rows layout vs gather layout", rows_r, rows)
@@ -731,11 +812,31 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
     g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
     bargs = (packed, ch, binning.gauss_id, binning.slot_sorted,
              binning.tile_start, binning.tile_count, st.grid_x, fwd_out, g_out)
-    _, _, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True)
+    # B3 at the step's width, on the step's inputs
+    masks = rl.quarter_masks_torch(packed, binning.gauss_id,
+                                   binning.tile_start, binning.tile_count,
+                                   st.grid_x)
+    bp, tp, pairs = rl.composite_fwd_torch(*fargs, count_pairs=True,
+                                           masks=masks)
+    err = max(check_close("B3 composite ch=8 (step) blended", blended, bp,
+                          1e-4, 1e-4),
+              check_close("B3 composite ch=8 (step) final_t", final_t, tp,
+                          1e-4, 1e-4))
+    check_final_t("B3 composite ch=8 (step) final_t", final_t,
+                  rl.composite_final_t_serial(*fargs))
+    quarter_cull_log("the step", masks, binning, pairs)
+    del bp, tp, masks
+    R, T = binning.gauss_id.shape[0], binning.tile_start.shape[0]
+    rec["composite_fwd_ch8"] = dict(
+        kernel="composite_fwd", use="training, ch=8", max_abs_err=err,
+        **times(lambda: rl.composite_fwd(*fargs), 20),
+        plain_ms=cuda_ms(lambda: rl.composite_fwd_torch(*fargs), iters=2),
+        bytes=(packed.numel() + R + 2 * T + T * (ch + 1) * 256) * 4,
+        flops=b3_flops(pairs, ch))
     ex = whole_tile_exits(pairs.reach, binning.tile_count)
     log(f"  B4 whole-tile exits (the twin's replay): {ex['tiles']} tiles, "
         f"{ex['rows']} rows zeroed after them")
-    R, gc = binning.gauss_id.shape[0], rl.grad_cols(ch)
+    gc = rl.grad_cols(ch)
     rows, order = b4_buffers(binning, ch, packed.device)
     rl.composite_bwd_into(rows, order, *bargs)
     check_bitwise("B4 tile order (longest first) vs a stable sort", order,
@@ -1604,6 +1705,7 @@ def run(dev, seed: int) -> list:
     rec.update(lab_recs)
 
     rec["pad_lanes"]["launches"] = cli["rows"][1]["pad_lanes"]
+    rec["composite_fwd"]["launches"] = serve_launches["composite_fwd"]
     rec["composite_fwd_rows"]["launches"] = cli["rows"][1]["composite_fwd"]
     rec["composite_bwd_rows"]["launches"] = rows_bwd_launches
 
@@ -1653,11 +1755,13 @@ def run(dev, seed: int) -> list:
     missing = set(KERNELS) - {k["name"] for k in kernels}
     if missing:
         raise AssertionError(f"no parity record for {sorted(missing)}")
-    for key, what in (("composite_fwd", "B3 pairs evaluated at ch=4"),
-                      ("composite_bwd", "B4 pairs replayed at ch=8")):
-        pairs = rec[key]["pairs"]
-        log(f"# {what}: {int(pairs.hit)} composited, {int(pairs.gated)} "
-            f"gated or stopping")
+    pairs = rec["composite_fwd"]["pairs"]
+    log(f"# B3 pairs at ch=4: {int(pairs.hit)} composited, "
+        f"{int(pairs.gated)} gated or stopping, of which {int(pairs.culled)} "
+        "culled (never evaluated)")
+    pairs = rec["composite_bwd"]["pairs"]
+    log(f"# B4 pairs replayed at ch=8: {int(pairs.hit)} composited, "
+        f"{int(pairs.gated)} gated or stopping")
     log(f"# B7 distinct tapped cells: {rec['grid_sample']['distinct_cells']}")
     return kernels
 
