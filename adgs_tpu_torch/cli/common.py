@@ -3,6 +3,10 @@ three-tier config system of the reference (arguments/__init__.py):
 dataclass defaults < python-module config file (-c) < explicit
 command-line flags. A cfg_args.json saved by either package loads here.
 
+ADGS_RM=1 in the environment selects the compositor's "rows" instance
+layout, as it does for the JAX package; `layout_from_env` is the one place
+that reads it, for both entry points (cli.train and cli.render).
+
 The renderer knobs of ModelConfig keep the JAX package's names and
 values, so a saved config means the same in both packages:
   - `backend`: "auto" follows the device, "pallas" is the port's "cuda"
@@ -57,6 +61,12 @@ class ModelConfig:
     batch_cameras: int = 1
 
     order_args: Optional[dict] = None
+
+
+def layout_from_env() -> str:
+    """The compositor's instance layout named by ADGS_RM (as the JAX
+    package reads it: an integer, nonzero for the row-major layout)."""
+    return "rows" if int(os.environ.get("ADGS_RM", "0")) else "gather"
 
 
 def render_backend(name: str) -> Optional[str]:

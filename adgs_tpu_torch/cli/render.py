@@ -13,8 +13,8 @@ Modes:
 The model path holds what either package's trainer writes: cfg_args.json
 and point_cloud/iteration_<N>/{point_cloud.ply, deform.npz, env.npy}.
 ADGS_RM=1 in the environment selects the compositor's "rows" instance
-layout, as it does for the JAX package; this entry point is the only
-place that reads it. --device defaults to the card.
+layout, as it does for the JAX package (cli/common.layout_from_env).
+--device defaults to the card.
 """
 
 from __future__ import annotations
@@ -40,13 +40,7 @@ from ..ops.image import psnr, ssim
 from ..raster.api import resolve_backend
 from ..train import checkpoint as ckpt_lib
 from .. import render as render_lib
-from .common import load_cfg_args, render_backend
-
-
-def layout_from_env() -> str:
-    """The compositor's instance layout named by ADGS_RM (as the JAX
-    package reads it: an integer, nonzero for the row-major layout)."""
-    return "rows" if int(os.environ.get("ADGS_RM", "0")) else "gather"
+from .common import layout_from_env, load_cfg_args, render_backend
 
 
 def _latest_iteration(model_path: str) -> int:

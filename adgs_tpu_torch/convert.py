@@ -102,6 +102,9 @@ def opt_config_from_dict(fields: dict) -> OptimizationConfig:
 
 
 def to_numpy(obj) -> dict[str, np.ndarray]:
-    """The inverse: a dataclass of tensors -> {field name: numpy array}."""
-    return {f.name: getattr(obj, f.name).detach().cpu().numpy()
-            for f in dataclasses.fields(obj)}
+    """The inverse: a dataclass or NamedTuple of tensors (e.g.
+    GaussianParams, GaussianState, densify's DensifyReport) -> {field
+    name: numpy array}."""
+    names = (obj._fields if isinstance(obj, tuple)
+             else [f.name for f in dataclasses.fields(obj)])
+    return {n: getattr(obj, n).detach().cpu().numpy() for n in names}

@@ -47,6 +47,10 @@ def projection_matrix(znear: float, zfar: float, fovx: float,
     return P
 
 
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * math.atan(pixels / (2 * focal))
 

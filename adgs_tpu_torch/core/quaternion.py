@@ -38,6 +38,22 @@ def conjugate(q: torch.Tensor) -> torch.Tensor:
     return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
 
 
+def to_rotation_matrix(q: torch.Tensor, normalized: bool = False
+                       ) -> torch.Tensor:
+    """[..., 4] wxyz quaternion -> [..., 3, 3] rotation matrix
+    (build_rotation)."""
+    if not normalized:
+        q = normalize(q)
+    r, x, y, z = q.unbind(-1)
+    row0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - r * z),
+                        2 * (x * z + r * y)], dim=-1)
+    row1 = torch.stack([2 * (x * y + r * z), 1 - 2 * (x * x + z * z),
+                        2 * (y * z - r * x)], dim=-1)
+    row2 = torch.stack([2 * (x * z - r * y), 2 * (y * z + r * x),
+                        1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def unit_to_rotvec(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion -> rotation vector, flipped to the w >= 0 hemisphere
     first (shortest arc)."""
@@ -63,3 +79,27 @@ def rotvec_to_unit(rv: torch.Tensor) -> torch.Tensor:
                     / torch.where(small, torch.ones_like(angle), angle))
     w = torch.cos(half)
     return torch.cat([w[..., None], rv * k[..., None]], dim=-1)
+
+
+def log(q: torch.Tensor) -> torch.Tensor:
+    """General quaternion log: [log|q|, axis * atan2(|v|, w)]."""
+    qn = torch.clamp(_safe_norm(q, dim=-1, keepdim=True), min=1e-5)
+    w = q[..., 0:1]
+    v = q[..., 1:]
+    vn = _safe_norm(v, dim=-1, keepdim=True)
+    axis = v / torch.clamp(vn, min=1e-12)
+    angle = torch.atan2(vn, w)
+    return torch.cat([torch.log(qn), axis * angle], dim=-1)
+
+
+def exp(q: torch.Tensor) -> torch.Tensor:
+    """General quaternion exp."""
+    s = q[..., 0:1]
+    v = q[..., 1:]
+    vn = _safe_norm(v, dim=-1, keepdim=True)
+    small = vn < _EPS
+    sinc = torch.where(small, 1.0 - vn * vn / 6.0,
+                       torch.sin(vn) / torch.where(small, torch.ones_like(vn),
+                                                   vn))
+    out = torch.cat([torch.cos(vn), sinc * v], dim=-1)
+    return torch.exp(s) * out

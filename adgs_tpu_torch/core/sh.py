@@ -65,3 +65,7 @@ def eval_sh_color(deg: int, sh: torch.Tensor, means: torch.Tensor,
 
 def rgb_to_sh(rgb):
     return (rgb - 0.5) / SH_C0
+
+
+def sh_to_rgb(sh):
+    return sh * SH_C0 + 0.5

@@ -96,6 +96,16 @@ class GaussianState:
     def alive(self) -> torch.Tensor:
         return torch.cat([self.scene_alive, self.obj_alive], dim=0)
 
+    @property
+    def num_scene(self) -> torch.Tensor:
+        """0-d count of alive scene Gaussians."""
+        return torch.sum(self.scene_alive)
+
+    @property
+    def num_obj(self) -> torch.Tensor:
+        """0-d count of alive object Gaussians."""
+        return torch.sum(self.obj_alive)
+
 
 def _pad(a: np.ndarray, cap: int, fill: float = 0.0) -> np.ndarray:
     out = np.full((cap,) + a.shape[1:], fill, dtype=np.float32)

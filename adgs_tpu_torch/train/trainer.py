@@ -1,0 +1,508 @@
+"""Host-side training orchestration (counterpart of
+adgs_tpu/train/trainer.py, single device).
+
+Camera-stack sampling, flow-package selection, SH degree warm-up, the
+densify / opacity-reset / KNN-refresh schedule, instance and Gaussian
+capacity growth, evaluation, failure snapshots, checkpoints and metrics
+(JSONL, plus TensorBoard where torch.utils.tensorboard imports), around
+the step of train/step.py.
+
+Random state is explicit and owned by the trainer: `rng`
+(random.Random(seed): camera picks and flow packages, the same picks as
+the JAX trainer), `np_rng` (np.random.default_rng(seed): the host KNN
+refresh's anchors) and `generator` (a torch.Generator on the device,
+seeded with `seed`, in place of the JAX trainer's PRNG key: the device
+KNN refresh's anchors and the split's draws).
+
+The hot loop reads two values from the card each step, as the JAX
+trainer does: the loss and num_rendered (for the overflow guard).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import random
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..data.frames import flow_package, load_frame
+from ..data.readers import SceneData
+from ..models import gaussians as gm
+from ..models.env_map import EnvironmentMap, camera_rays
+from ..ops import knn
+from ..ops.image import psnr
+from ..profiling import StepTimer, trace
+from .. import render as render_lib
+from . import checkpoint as ckpt_lib
+from . import densify as densify_lib
+from .config import OptimizationConfig
+from .optim import TrainableState, init_adam
+from .step import make_train_step
+
+DEFAULT_ORDER_ARGS = dict(xyz=[None, 5, 0, 6, 0, 0],
+                          rotation=[0, 0, 0, 0, None, 5],
+                          shs=[0, 0, 0, 6, 0, 0],
+                          background=[0, 0, 0, 0, 0, 0])
+
+
+class MetricsLogger:
+    """JSONL scalars, and TensorBoard where it imports."""
+
+    def __init__(self, model_path: str, use_tensorboard: bool = True):
+        os.makedirs(model_path, exist_ok=True)
+        self.f = open(os.path.join(model_path, "metrics.jsonl"), "a")
+        self.tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.tb = SummaryWriter(model_path)
+
+    def scalars(self, step: int, values: dict, prefix: str = "train"):
+        rec = {"step": step, "split": prefix}
+        rec.update({k: float(v) for k, v in values.items()})
+        self.f.write(json.dumps(rec) + "\n")
+        self.f.flush()
+        if self.tb is not None:
+            for k, v in values.items():
+                self.tb.add_scalar(f"{prefix}/{k}", float(v), step)
+
+    def image(self, step: int, tag: str, img: np.ndarray):
+        """img: [3, H, W] or [H, W] float in [0, 1] -> TensorBoard."""
+        if self.tb is None:
+            return
+        if img.ndim == 2:
+            img = np.repeat(img[None], 3, axis=0)
+        self.tb.add_image(tag, np.clip(img, 0.0, 1.0), step)
+
+    def flush(self):
+        self.f.flush()
+        if self.tb is not None:
+            self.tb.flush()
+
+    def close(self):
+        self.f.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+class Trainer:
+    """backend: the port's render backend ("cuda", "torch", or None: from
+    the device). layout: the compositor's instance layout, "gather" or
+    "rows". device: None means the card."""
+
+    def __init__(self, scene: SceneData, opt: OptimizationConfig,
+                 model_path: str,
+                 order_args: Optional[dict] = None,
+                 sh_degree: int = 3,
+                 env_resolution: int = 8192,
+                 resolution: int = 1,
+                 default_order_downsample_ratio: int = 3,
+                 backend: Optional[str] = None,
+                 capacity: int = 1 << 18,
+                 inv_depth: bool = True,
+                 seed: int = 0,
+                 capacity_quantum: int = 4096,
+                 white_background: bool = False,
+                 profile_dir: Optional[str] = None,
+                 devices: int = 0,
+                 batch_cameras: int = 1,
+                 device=None,
+                 layout: str = "gather"):
+        if int(devices) > 1 or int(batch_cameras) > 1:
+            raise NotImplementedError(
+                "multi-device training (devices > 1, batch_cameras > 1) is "
+                "not ported yet: ROADMAP.md A5")
+        self.device = resolve_device(device)
+        self.scene = scene
+        self.opt = opt
+        self.model_path = model_path
+        self.backend = backend
+        self.capacity = capacity
+        self.inv_depth = inv_depth
+        self.white_background = white_background
+        self.resolution = resolution
+        self.capacity_quantum = capacity_quantum
+        self.profile_dir = profile_dir
+        self.layout = layout
+        self.rng = random.Random(seed)
+        self.np_rng = np.random.default_rng(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        order_args = order_args or DEFAULT_ORDER_ARGS
+        frame_num = int(round(1.0 / scene.frame_gap))
+        self.config = gm.GaussianConfig.from_order_args(
+            order_args, frame_num, default_order_downsample_ratio,
+            sh_degree=sh_degree, use_time_mask=opt.lambda_sigma > 0.0)
+
+        d2 = knn.mean_knn_sq_dist(scene.points)
+        params, state = gm.create_from_pcd(
+            scene.points, scene.colors, scene.obj_id, scene.times,
+            self.config, d2, capacity_quantum=capacity_quantum, seed=seed,
+            device=self.device)
+        self.params = gm.set_init_time_sigma(params, scene.frame_gap)
+        self.state = state
+        self.env = EnvironmentMap.create(env_resolution, seed=seed,
+                                         device=self.device)
+        self.opt_state = init_adam(TrainableState(self.params, self.env))
+
+        self.use_near_idx = (opt.lambda_reg > 0.0
+                             or (opt.lambda_sigma > 0.0
+                                 and opt.lambda_sigma_reg > 0.0))
+        self.cameras_extent = max(scene.cameras_extent, opt.min_camera_extent)
+        self.logger = MetricsLogger(model_path)
+        self._step_fn = None
+        self._ray_cache: dict = {}
+        self.active_sh_degree = 0
+        self.iteration = 0
+        # frames loaded on first use; also holds the evaluation render
+        # functions under ("eval", sh_degree)
+        self._frame_cache: dict = {}
+
+    # ------------------------------------------------------------------
+    def _get_frame(self, split: str, idx: int):
+        keyed = (split, idx)
+        if keyed not in self._frame_cache:
+            frames = (self.scene.train_frames if split == "train"
+                      else self.scene.test_frames)
+            self._frame_cache[keyed] = load_frame(
+                frames[idx], self.resolution, device=self.device)
+        return self._frame_cache[keyed]
+
+    def _rays_for(self, cam, cam_id: int) -> torch.Tensor:
+        if cam_id not in self._ray_cache:
+            self._ray_cache[cam_id] = torch.as_tensor(
+                camera_rays(cam.focal_x, cam.height, cam.width),
+                dtype=torch.float32, device=self.device)
+        return self._ray_cache[cam_id]
+
+    def _frames_for_step(self, picks: list, opt):
+        """The step's (camera, batch, rays) for picks = [frame index]. When
+        flow supervision is on and the frame has flow packages, one is
+        drawn with `rng`."""
+        frames = self.scene.train_frames
+        (i,) = picks
+        cam, batch, flow_list = self._get_frame("train", i)
+        if opt.lambda_flow > 0.0 and flow_list:
+            raw = flow_list[self.rng.randrange(len(flow_list))]
+            batch = batch._replace(
+                flow=flow_package(raw, device=self.device),
+                flow_valid=torch.tensor(True, device=self.device))
+        return cam, batch, self._rays_for(cam, frames[i].cam_id)
+
+    def _build_step(self):
+        self._step_fn = make_train_step(
+            self.config, self.opt, self.scene.frame_gap,
+            self.scene.scene_extent, self.scene.cameras_extent,
+            backend=self.backend, capacity=self.capacity,
+            inv_depth=self.inv_depth, layout=self.layout)
+
+    def refresh_near_idx(self):
+        """set_obj_near_idx: random alive anchors and their K nearest
+        object Gaussians in xyz (+ time * scene_extent when time-masked).
+        By default on the device (ops/knn.near_idx_device, anchors drawn
+        with `generator`); ADGS_KNN_HOST=1 takes the exact host path
+        (scipy, anchors drawn with `np_rng`)."""
+        if not self.use_near_idx:
+            return
+        K = self.opt.near_num
+        a_cap = max(1, self.params.obj_capacity // K)
+        if not int(os.environ.get("ADGS_KNN_HOST", "0")):
+            pts = self.params.obj_xyz
+            if self.config.use_time_mask:
+                pts = torch.cat([pts, self.state.gs_time[:, None]
+                                 * self.scene.scene_extent], dim=1)
+            r = torch.rand((pts.shape[0],), generator=self.generator,
+                           device=self.device)
+            idx, valid = knn.near_idx_device(pts, self.state.obj_alive, r, K,
+                                             a_cap)
+            self.state = dataclasses.replace(
+                self.state, obj_near_idx=idx, obj_near_valid=valid)
+            return
+        oa = self.state.obj_alive.cpu().numpy()
+        idx_alive = np.nonzero(oa)[0]
+        if len(idx_alive) < K:
+            return
+        pts = self.params.obj_xyz.detach().cpu().numpy()[idx_alive]
+        if self.config.use_time_mask:
+            t = self.state.gs_time.cpu().numpy()[idx_alive]
+            pts = np.concatenate(
+                [pts, t[:, None] * self.scene.scene_extent], axis=1)
+        n_anchor = max(1, len(idx_alive) // K)
+        perm = self.np_rng.permutation(len(idx_alive))[:n_anchor]
+        nn = knn.knn_indices(pts[perm], pts, k=K)
+        # map back to padded slot indices; pad anchors to a stable shape
+        idx = idx_alive[nn].astype(np.int32)
+        out = np.zeros((a_cap, K), np.int32)
+        valid = np.zeros(a_cap, bool)
+        n = min(a_cap, idx.shape[0])
+        out[:n] = idx[:n]
+        valid[:n] = True
+        self.state = dataclasses.replace(
+            self.state, obj_near_idx=torch.as_tensor(out, device=self.device),
+            obj_near_valid=torch.as_tensor(valid, device=self.device))
+
+    def _maybe_grow_instance_capacity(self, num_rendered: int):
+        """Grow the instance capacity to num_rendered / 0.92 (rounded up to
+        4096) once num_rendered passes 0.97 of it; the per-step overflow
+        guard in train() calls this on every overflow, so truncation is
+        never silent. The step is rebuilt (nothing is compiled) and the
+        evaluation render functions, which bind the old capacity, are
+        dropped."""
+        if num_rendered <= 0.97 * self.capacity:
+            return
+        q = 4096
+        new_cap = -(-int(num_rendered / 0.92) // q) * q
+        if new_cap <= self.capacity:
+            return
+        self.capacity = new_cap
+        self._build_step()
+        for k in [k for k in self._frame_cache if k[0] == "eval"]:
+            del self._frame_cache[k]
+        print(f"[capacity] instance capacity grew to {new_cap}")
+
+    def _maybe_grow_capacity(self):
+        """Double a Gaussian block that is more than 90% alive."""
+        ns = int(self.state.num_scene)
+        no = int(self.state.num_obj)
+        Ns = self.params.scene_capacity
+        No = self.params.obj_capacity
+        grow_s = Ns if ns > 0.9 * Ns else 0
+        grow_o = No if no > 0.9 * No else 0
+        if grow_s or grow_o:
+            t, self.opt_state, self.state = densify_lib.grow_capacity(
+                TrainableState(self.params, self.env), self.opt_state,
+                self.state, Ns + grow_s, No + grow_o)
+            self.params, self.env = t.gaussians, t.env
+            print(f"[capacity] grew to scene={Ns + grow_s} obj={No + grow_o}")
+
+    def _dump_failure_snapshot(self, it: int, fidx: int) -> str:
+        """Repro capsule on a step failure: the full train state and the
+        failing frame index, loadable with checkpoint.load_state to replay
+        the step (e.g. with backend "torch" to tell a kernel fault from a
+        model fault)."""
+        path = os.path.join(self.model_path, f"snapshot_fail_{it}.npz")
+        try:
+            ckpt_lib.save_state(
+                path, TrainableState(self.params, self.env),
+                self.opt_state, self.state, it,
+                extras={"failed_frame_idx": fidx,
+                        "active_sh_degree": self.active_sh_degree,
+                        "instance_capacity": self.capacity})
+        except Exception as dump_err:  # noqa: BLE001 (reported, then the
+            # step's own error is re-raised by the caller)
+            return f"<dump failed: {dump_err}>"
+        return path
+
+    # ------------------------------------------------------------------
+    def train(self, iterations: Optional[int] = None,
+              save_iterations: Optional[list] = None,
+              test_iterations: Optional[list] = None,
+              log_every: int = 10):
+        opt = self.opt
+        iterations = iterations or opt.iterations
+        save_iterations = set(save_iterations or [iterations])
+        test_iterations = set(test_iterations or [iterations])
+        if self._step_fn is None:
+            self._build_step()
+        self.refresh_near_idx()
+
+        self.timer = timer = StepTimer()
+        # --profile: trace a short steady-state window (steps 20-39)
+        prof_window = range(20, 40) if self.profile_dir else range(0)
+        prof_ctx = None
+
+        stack: list = []
+        ema = 0.0
+        t_start = time.time()
+        for it in range(self.iteration + 1, iterations + 1):
+            self.iteration = it
+            if self.profile_dir and it == prof_window.start:
+                prof_ctx = trace(self.profile_dir)
+                prof_ctx.__enter__()
+            if prof_ctx is not None and it == prof_window.stop:
+                prof_ctx.__exit__(None, None, None)
+                prof_ctx = None
+                print(f"[profile] trace written to {self.profile_dir}")
+            if it % 1000 == 0 and self.active_sh_degree < self.config.sh_degree:
+                self.active_sh_degree += 1
+
+            if not stack:
+                stack = list(range(len(self.scene.train_frames)))
+                if opt.data_sample == "stack":
+                    self.rng.shuffle(stack)
+            fidx = stack.pop(0 if opt.data_sample == "order"
+                             else self.rng.randrange(len(stack)))
+            cam, batch, rays = self._frames_for_step([fidx], opt)
+
+            try:
+                with timer:
+                    (self.params, self.env, self.opt_state, self.state,
+                     logs) = self._step_fn(
+                        self.params, self.env, self.opt_state, self.state,
+                        cam, batch, rays, it,
+                        active_sh_degree=self.active_sh_degree)
+                    loss = float(logs["total_loss"])  # waits for the step
+            except Exception:
+                path = self._dump_failure_snapshot(it, fidx)
+                print(f"[debug] step {it} raised; repro state dumped to "
+                      f"{path} (frame {fidx})", file=sys.stderr)
+                raise
+            num_rendered = int(logs["num_rendered"])
+            ema = 0.4 * loss + 0.6 * ema if it > 1 else loss
+            if it % log_every == 0:
+                self.logger.scalars(
+                    it, dict(logs, steps_per_sec=timer.steps_per_sec))
+            # per-step overflow guard: a frame whose num_rendered exceeds
+            # the capacity truncated its tile lists, so grow now
+            if (num_rendered > self.capacity
+                    or it % opt.densification_interval == 0):
+                self._maybe_grow_instance_capacity(num_rendered)
+            if it % 200 == 0:
+                n = int(self.state.num_scene) + int(self.state.num_obj)
+                print(f"[{it}/{iterations}] loss={ema:.5f} pts={n} "
+                      f"({(time.time() - t_start):.0f}s)")
+
+            # densification (train.py:148-160)
+            if it < opt.densify_until_iter:
+                if (it > opt.densify_from_iter
+                        and it % opt.densification_interval == 0):
+                    t, self.opt_state, self.state, _ = \
+                        densify_lib.densify_and_prune(
+                            TrainableState(self.params, self.env),
+                            self.opt_state, self.state, self.generator,
+                            opt.densify_scene_grad_threshold,
+                            opt.densify_obj_grad_threshold,
+                            opt.min_opacity,
+                            it > opt.opacity_reset_interval,
+                            self.scene.scene_extent, opt.object_extent,
+                            opt.percent_dense)
+                    self.params, self.env = t.gaussians, t.env
+                    self._maybe_grow_capacity()
+                    self.refresh_near_idx()
+                elif (self.use_near_idx
+                      and it % opt.near_idx_reset_interval == 0):
+                    self.refresh_near_idx()
+                if (it % opt.opacity_reset_interval == 0
+                        or (self.white_background
+                            and it == opt.densify_from_iter)):
+                    # white-background scenes also reset once at the start
+                    # of densification
+                    t, self.opt_state = densify_lib.reset_opacity(
+                        TrainableState(self.params, self.env), self.opt_state)
+                    self.params, self.env = t.gaussians, t.env
+
+            if it in test_iterations:
+                self.evaluate(it)
+            if it in save_iterations:
+                self.save(it)
+        if prof_ctx is not None:
+            prof_ctx.__exit__(None, None, None)
+        self.logger.flush()
+
+    # ------------------------------------------------------------------
+    def eval_render_fn(self):
+        """The serving render function at the active SH degree and the
+        current instance capacity (cached until the capacity grows)."""
+        key = ("eval", self.active_sh_degree)
+        if key not in self._frame_cache:
+            self._frame_cache[key] = render_lib.make_staged_render_fn(
+                self.config, active_sh_degree=self.active_sh_degree,
+                inv_depth=self.inv_depth, backend=self.backend,
+                capacity=self.capacity, layout=self.layout)
+        return self._frame_cache[key]
+
+    def evaluate(self, it: int, max_frames: int = 10, max_panels: int = 3):
+        """PSNR / SSIM (and LPIPS(VGG) where its weights exist) over the
+        test split and 5 fixed train cameras, and image panels of the
+        first frames to TensorBoard."""
+        from ..ops.image import ssim as ssim_fn
+        from ..ops.lpips import lpips_fn
+        render_fn = self.eval_render_fn()
+        lp_vgg = lpips_fn("vgg", device=self.device)
+        configs = [("test", range(min(max_frames,
+                                      len(self.scene.test_frames))))]
+        if self.scene.train_frames:
+            n_tr = len(self.scene.train_frames)
+            configs.append(("train", [i % n_tr for i in range(5, 30, 5)]))
+        for split, idxs in configs:
+            frames = (self.scene.test_frames if split == "test"
+                      else self.scene.train_frames)
+            vals: dict = {"psnr": [], "ssim": [], "lpips": []}
+            for j, i in enumerate(idxs):
+                cam, batch, _ = self._get_frame(split, i)
+                rays = self._rays_for(cam, frames[i].cam_id)
+                out = render_fn(cam, self.params, self.state, self.env, rays)
+                img = torch.clamp(out["render"], 0, 1)
+                vals["psnr"].append(float(psnr(img, batch.image)))
+                vals["ssim"].append(float(ssim_fn(img, batch.image)))
+                if lp_vgg is not None:
+                    vals["lpips"].append(float(lp_vgg(img, batch.image)))
+                if j < max_panels and self.logger.tb is not None:
+                    self._log_panels(it, f"{split}_view_{i}", out, img,
+                                     batch)
+            if vals["psnr"]:
+                scalars = {"psnr": np.mean(vals["psnr"]),
+                           "ssim": np.mean(vals["ssim"])}
+                if vals["lpips"]:
+                    scalars["lpips_vgg"] = np.mean(vals["lpips"])
+                print(f"[ITER {it}] {split} "
+                      + " ".join(f"{k.upper()} {v:.3f}"
+                                 for k, v in scalars.items()))
+                self.logger.scalars(it, scalars, prefix=split)
+
+    def _log_panels(self, it: int, tag: str, out: dict, img, batch):
+        """Image panels at test iterations (render, ground truth, error,
+        depth, opacity, foreground, background, object mask)."""
+        def np_(x):
+            return x.detach().cpu().numpy()
+
+        np_img, gt = np_(img), np_(batch.image)
+        self.logger.image(it, f"{tag}/render", np_img)
+        self.logger.image(it, f"{tag}/ground_truth", gt)
+        self.logger.image(it, f"{tag}/error", np.abs(np_img - gt))
+        depth = np_(out["depth"])
+        dmax = depth.max()
+        self.logger.image(it, f"{tag}/depth",
+                          depth / dmax if dmax > 0 else depth)
+        self.logger.image(it, f"{tag}/opacity", np_(out["img_opacity"]))
+        self.logger.image(it, f"{tag}/foreground", np_(out["foreground"]))
+        self.logger.image(it, f"{tag}/background", np_(out["background"]))
+        if out.get("img_semantic") is not None:
+            self.logger.image(it, f"{tag}/objmask",
+                              np_(out["img_semantic"])[0])
+
+    def resume(self, path: str):
+        """Mid-training resume from a train_state.npz snapshot (of either
+        package; the capacities must match)."""
+        tr, self.opt_state, self.state, it = ckpt_lib.load_state(
+            path, TrainableState(self.params, self.env), self.opt_state,
+            self.state)
+        self.params, self.env = tr.gaussians, tr.env
+        self.iteration = it
+        self.active_sh_degree = min(it // 1000, self.config.sh_degree)
+        print(f"[resume] restored iteration {it}")
+
+    def save(self, it: int):
+        base = os.path.join(self.model_path, "point_cloud",
+                            f"iteration_{it}")
+        ckpt_lib.save_ply(os.path.join(base, "point_cloud.ply"),
+                          self.params, self.state, self.config)
+        np.save(os.path.join(base, "env.npy"), self.env.grid.cpu().numpy())
+        ckpt_lib.save_state(
+            os.path.join(base, "train_state.npz"),
+            TrainableState(self.params, self.env), self.opt_state,
+            self.state, it)
+        print(f"[ITER {it}] saved to {base}")
+
+    def close(self):
+        self.logger.close()

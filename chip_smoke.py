@@ -11,7 +11,8 @@ Phases (any failure exits non-zero before the last line is printed):
      Gaussians, log-scales shrunk by log(0.3)), a 1242x375 frame and a
      3x8192x8192 sky grid, all made from --seed; for training also the
      frame batch of bench.py's protocol and KNN groups (obj_capacity // 8
-     anchors of 8, scipy cKDTree over the alive object Gaussians);
+     anchors of 8, the port's exact ops/knn over the alive object
+     Gaussians);
   4. the serving path: 8 requests through make_staged_render_fn
      (two camera poses, times spread over [0, 1]) with the launch counts
      reset just before; every output finite, no overflow, every serving
@@ -33,7 +34,26 @@ Phases (any failure exits non-zero before the last line is printed):
      step run twice from the same inputs, and one step in the rows
      layout, every updated tensor bitwise equal to the first;
   8. training in both layouts in turns, AB_ROUNDS turns of 3 steps;
-  9. kernel parity at the slices' shapes, each kernel against its plain
+  9. the trainer: adgs_tpu_torch.cli.train on a KITTI-format scene
+     (1242x375, KITTI P2's focal, the two poses, 10 frames: 8 train, 2
+     test) whose reader leaves ~1M Gaussians (~30% object: 700,000 scene
+     points on distinct 0.5-unit voxels, 3,000,000 object points of which
+     it keeps 10%), with configs/kitti-75.py at SH degree 3, the
+     3x8192x8192 sky, every loss term, ModelConfig's instance capacity
+     and 40 iterations (densify every 10 from 0, opacity reset every 20,
+     KNN refresh every 5); launch counts reset just before: every loss
+     finite, all seven training kernels launched, an instance-capacity
+     growth by the overflow guard, a Gaussian-capacity growth, clones and
+     splits; each densify's alive counts add up (before + cloned + split
+     - split sources - pruned = after) and its new slots' moments are
+     zero; after each opacity reset every alive opacity is <= 0.01 and
+     its moments zero; after each KNN refresh every valid group holds
+     alive object slots and min(a_cap, alive // K) groups are valid (on
+     one, recall of the exact KNN logged); test frame 0 at full SH degree
+     in memory and by cli.render on the checkpoint within 1/255; seconds
+     per part, ms/step, device ms of each densify, reset, refresh and
+     growth, peak memory;
+10. kernel parity at the slices' shapes, each kernel against its plain
      PyTorch twin on the same inputs: B2 live compaction and B1 expansion
      bitwise (B1 also at a capacity below num_rendered), B3 compositing
      1e-4 at ch=4 and ch=8 (on the served frame, and at ch=8 on the
@@ -64,11 +84,11 @@ Phases (any failure exits non-zero before the last line is printed):
      and F.pad, B3 and B4 bitwise against their gather layout. This
      phase and the next run after the timed paths, so that their
      profiler sessions and allocations do not reach the timed steps;
- 10. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
+ 11. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
      their twins at 1e-5 of max|twin|, E1 also at one chunk a program
      over a program count that is not a multiple of 8, then the ported
      lab at its defaults with the launch counts reset just before;
- 11. times with CUDA events: ms per frame and per training step and ms
+ 12. times with CUDA events: ms per frame and per training step and ms
      per stage, all read from events recorded inside the requests and
      steps themselves, peak device memory, a torch.profiler view of one
      request and one step (top device ops, device busy share), and one
@@ -80,7 +100,7 @@ Phases (any failure exits non-zero before the last line is printed):
      call (torch.profiler, a few calls), its plain twin's time, its bound
      and, where one PyTorch call computes the same function, that call's
      two times.
-Phases 3-11 are `run(device, seed)`, which a CPU rehearsal can call at a
+Phases 3-12 are `run(device, seed)`, which a CPU rehearsal can call at a
 small size with host-side stand-ins for the CUDA timers.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -245,10 +265,10 @@ def build_scene(device, seed: int, n: int, width: int, height: int,
     rays, cameras). Points lie 6-14 units ahead of the camera (world +x)."""
     import dataclasses
     import torch
-    from scipy.spatial import cKDTree
     from adgs_tpu_torch.core.camera import Camera
     from adgs_tpu_torch.models import gaussians as gm
     from adgs_tpu_torch.models.env_map import EnvironmentMap, camera_rays
+    from adgs_tpu_torch.ops.knn import mean_knn_sq_dist
 
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(n, 3)).astype(np.float32) * 4.0
@@ -256,8 +276,7 @@ def build_scene(device, seed: int, n: int, width: int, height: int,
     cols = rng.uniform(size=(n, 3)).astype(np.float32)
     obj_id = (rng.random(n) < 0.3).astype(np.float32)
     times = rng.uniform(size=n).astype(np.float32)
-    dist, _ = cKDTree(pts).query(pts, k=4, workers=-1)
-    d2 = np.mean(dist[:, 1:] ** 2, axis=1).astype(np.float32)
+    d2 = mean_knn_sq_dist(pts)
 
     cfg = gm.GaussianConfig.from_order_args(KITTI_75, frame_num=FRAME_NUM,
                                             sh_degree=3, use_time_mask=True)
@@ -1110,12 +1129,13 @@ def lab_phase(dev, seed):
     return recs, launches
 
 
-def write_cli_scene(root, seed, poses, width, height, points):
+def write_cli_scene(root, seed, poses, width, height, points, obj=None):
     """A KITTI-format scene (tests/test_data_cli.py's contract: poses.npz,
     image/, depth/, semantic/, sky/, flow/nvs-75/, points3d-75.ply,
     colmap-75.ply) at width x height, KITTI P2's focal: the two poses as
     the two cameras, CLI_TIMESTAMPS timestamps each, images and priors
-    from the seed, init clouds from `points` [M, 3]."""
+    from the seed, init clouds from `points` [M, 3] with object flags
+    `obj` [M] (None: 30% at random); the SfM cloud is the first 1000."""
     import os
     from PIL import Image
     from adgs_tpu_torch.data.ply import store_point_cloud
@@ -1151,7 +1171,8 @@ def write_cli_scene(root, seed, poses, width, height, points):
         np.savez(os.path.join(root, "flow", "nvs-75", name + ".npz"),
                  flow=np.asarray([pkg], dtype=object))
     cols = rng.uniform(size=points.shape) * 255
-    obj = (rng.random(len(points)) < 0.3).astype(np.float32)
+    if obj is None:
+        obj = (rng.random(len(points)) < 0.3).astype(np.float32)
     tms = rng.uniform(0, CLI_TIMESTAMPS - 1, len(points)).astype(np.float32)
     store_point_cloud(os.path.join(root, "points3d-75.ply"), points, cols,
                       tms, obj)
@@ -1253,6 +1274,509 @@ def cli_phase(cfg, params, state, env, cams, poses, seed, dev):
     return out
 
 
+# the trainer phase: a KITTI-format scene whose reader leaves ~1M
+# Gaussians, trained through adgs_tpu_torch.cli.train
+TRAIN_SCENE_POINTS = 700_000   # one per 0.5-unit voxel (the KITTI voxel)
+TRAIN_OBJ_POINTS = 3_000_000   # the KITTI reader keeps 10% of them
+TRAIN_CARS = 60                # car-sized boxes holding the object points
+TRAIN_DEPTH = (15.0, 90.0)     # depths of the scene points
+TRAIN_ITERS = 40
+# The default densify thresholds (2e-4) write nothing on this scene: on
+# an H100 no Gaussian's mean screen gradient at the first densify passes
+# 1e-5 (max 5.6e-6 scene, 3.6e-6 object; the densify lines log them).
+# These sit near that densify's 99th percentiles (2.0e-8, 4.9e-8).
+TRAIN_GRAD_ARGS = ["--densify_scene_grad_threshold", "2e-8",
+                   "--densify_obj_grad_threshold", "5e-8"]
+
+
+def train_args() -> list:
+    """cli.train's arguments after -s, -m, --seed and --device: the
+    KITTI-75 preset at SH degree 3 and the full sky, every loss term on
+    (OptimizationConfig's defaults), ModelConfig's instance capacity, and
+    a schedule that densifies, resets opacity and refreshes the KNN
+    groups within TRAIN_ITERS iterations."""
+    n = str(TRAIN_ITERS)
+    return (["-c", "configs/kitti-75.py", "--sh_degree", "3",
+             "--env_resolution", str(ENV_RES), "--iterations", n,
+             "--densification_interval", "10", "--densify_from_iter", "0",
+             "--opacity_reset_interval", "20",
+             "--near_idx_reset_interval", "5", "--test_iterations", n,
+             "--save_iterations", n] + TRAIN_GRAD_ARGS)
+
+
+def train_scene_points(seed, cams, n_scene, n_obj):
+    """The trainer phase's init cloud, all in view of both cameras:
+    n_scene scene points, one in each of as many distinct 0.5-unit voxels
+    at depths TRAIN_DEPTH, then n_obj object points in TRAIN_CARS
+    4 x 2 x 1.5 boxes at depths 12-40. Returns (points [M, 3] float32,
+    object flags [M])."""
+    rng = np.random.default_rng(seed + 3)
+    mats = [(c.world_view.cpu().numpy().astype(np.float64),
+             c.full_proj.cpu().numpy().astype(np.float64)) for c in cams]
+
+    def in_view(p, margin, near, far=np.inf):
+        h = np.concatenate([p, np.ones((len(p), 1))], axis=1)
+        ok = np.ones(len(p), bool)
+        for wv, fp in mats:
+            z = (h @ wv)[:, 2]
+            q = h @ fp
+            ok &= ((z > near) & (z < far)
+                   & (np.abs(q[:, 0]) < margin * q[:, 3])
+                   & (np.abs(q[:, 1]) < margin * q[:, 3]))
+        return ok
+
+    v = 0.5
+    far = TRAIN_DEPTH[1]
+    grid = np.stack(np.meshgrid(np.arange(-8.0, far, v),
+                                np.arange(-far, far, v),
+                                np.arange(-far / 3, far / 3, v),
+                                indexing="ij"), -1).reshape(-1, 3)
+    grid = grid[in_view(grid + v / 2, 0.95, TRAIN_DEPTH[0], far)]
+    if len(grid) < n_scene:
+        raise AssertionError(f"{len(grid)} voxels in view, {n_scene} wanted")
+    corner = grid[rng.choice(len(grid), n_scene, replace=False)]
+    scene = corner + rng.uniform(0.1, 0.9, corner.shape) * v
+    cars = []
+    while len(cars) < TRAIN_CARS:
+        c = np.array([rng.uniform(4.0, 32.0), rng.uniform(-12.0, 12.0),
+                      rng.uniform(-3.0, 1.0)])
+        if in_view(c[None], 0.7, 10.0)[0]:
+            cars.append(c)
+    per = -(-n_obj // TRAIN_CARS)
+    obj = np.concatenate([c + (rng.random((per, 3)) - 0.5)
+                          * np.array([4.0, 2.0, 1.5]) for c in cars])[:n_obj]
+    points = np.concatenate([scene, obj]).astype(np.float32)
+    flags = np.concatenate([np.zeros(n_scene), np.ones(n_obj)])
+    return points, flags.astype(np.float32)
+
+
+def cuda_timed(fn):
+    """(fn()'s result, the CUDA-event ms from before it to after it)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+class TrainProbe:
+    """Wraps what cli.train runs (read_scene, Trainer, its step, densify,
+    opacity reset, KNN refresh, capacity growths, evaluate, save) to
+    check each call and time it; `restore` puts every wrapped function
+    back."""
+
+    def __init__(self):
+        import torch
+        from adgs_tpu_torch.cli import train as cli_train
+        from adgs_tpu_torch.train import densify as densify_mod
+        from adgs_tpu_torch.train.trainer import MetricsLogger, Trainer
+        self.torch = torch
+        self.trainer = None
+        self.seconds = {"read_scene": 0.0, "Trainer init": 0.0,
+                        "evaluation": 0.0, "save": 0.0}
+        self.panel_s = 0.0
+        self.steps, self.densify, self.resets, self.refreshes = [], [], [], []
+        self.grows, self.instance_grows, self.eval_renders = [], [], []
+        self.recall = None
+        self._patches = []
+        p = self._patch
+        p(cli_train, "read_scene", self._read_scene)
+        p(cli_train, "Trainer", self._make_trainer)
+        p(densify_mod, "densify_and_prune", self._densify_and_prune)
+        p(densify_mod, "reset_opacity", self._reset_opacity)
+        p(densify_mod, "grow_capacity", self._grow_capacity)
+        p(MetricsLogger, "image", self._image)
+        for name in ("_build_step", "refresh_near_idx",
+                     "_maybe_grow_instance_capacity", "eval_render_fn",
+                     "evaluate", "save"):
+            p(Trainer, name, getattr(self, name.lstrip("_") + "_"))
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._patches.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def restore(self):
+        for owner, name, orig in reversed(self._patches):
+            setattr(owner, name, orig)
+        self._patches = []
+
+    def _timed_s(self, part, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.seconds[part] += time.perf_counter() - t0
+        return out
+
+    def _read_scene(self, orig):
+        def read_scene(*a, **k):
+            scene = self._timed_s("read_scene", lambda: orig(*a, **k))
+            n_obj = int((scene.obj_id > 0.5).sum())
+            log(f"#   read_scene: {len(scene.points)} Gaussians "
+                f"({len(scene.points) - n_obj} scene, {n_obj} object, "
+                f"{n_obj / len(scene.points):.1%}); extent scene "
+                f"{scene.scene_extent:.2f}, cameras {scene.cameras_extent:.2f}")
+            return scene
+        return read_scene
+
+    def _image(self, orig):
+        def image(logger, *a, **k):
+            t0 = time.perf_counter()
+            orig(logger, *a, **k)
+            self.panel_s += time.perf_counter() - t0
+        return image
+
+    def _make_trainer(self, orig):
+        def make(*a, **k):
+            self.trainer = self._timed_s("Trainer init", lambda: orig(*a, **k))
+            return self.trainer
+        return make
+
+    def build_step_(self, orig):
+        probe = self
+
+        def build(tr):
+            orig(tr)
+            step = tr._step_fn
+
+            def timed_step(*a, **k):
+                t0 = time.perf_counter()
+                out = step(*a, **k)
+                probe.torch.cuda.synchronize()
+                probe.steps.append((tr.iteration,
+                                    (time.perf_counter() - t0) * 1e3,
+                                    out[4]["total_loss"]))
+                return out
+            tr._step_fn = timed_step
+        return build
+
+    def _densify_and_prune(self, orig):
+        def densify(trainables, opt_state, state, generator, *args):
+            (max_scene_grad, max_obj_grad, _, prune_big, scene_extent,
+             object_extent, percent_dense) = args
+            torch = self.torch
+            g = trainables.gaussians
+            grads = state.xyz_grad_accum / torch.clamp(state.denom, min=1e-12)
+            grads = torch.where(state.denom > 0, grads, 0.0)
+            Ns = g.scene_capacity
+            blocks = (("scene", state.scene_alive, grads[:Ns], max_scene_grad,
+                       scene_extent), ("obj", state.obj_alive, grads[Ns:],
+                                       max_obj_grad, object_extent))
+            pre = {}
+            for name, alive, gr, thr, extent in blocks:
+                big = (torch.amax(torch.exp(getattr(g, name + "_scaling")),
+                                  -1) > extent * percent_dense)
+                dens = (gr >= thr) & alive
+                q = torch.quantile(gr[alive][:1 << 24].double(),
+                                   torch.tensor([0.5, 0.99, 1.0],
+                                                dtype=torch.float64,
+                                                device=gr.device))
+                pre[name] = dict(alive=alive.clone(), n=int(alive.sum()),
+                                 clone=int((dens & ~big).sum()),
+                                 split=int((dens & big).sum()),
+                                 over=int(dens.sum()),
+                                 grad_q=[float(x) for x in q])
+            out, ms = cuda_timed(lambda: orig(trainables, opt_state, state,
+                                              generator, *args))
+            t2, o2, s2, rep = out
+            rep = {k: int(v) for k, v in rep._asdict().items()}
+            from adgs_tpu_torch.train.densify import OBJ_FIELDS, SCENE_FIELDS
+            for (name, *_), fields in zip(blocks, (SCENE_FIELDS, OBJ_FIELDS)):
+                b = pre[name]
+                after = getattr(s2, name + "_alive")
+                n_after = int(after.sum())
+                want = (b["n"] + rep[name + "_cloned"] + rep[name + "_split"]
+                        - b["split"] - rep[name + "_pruned"])
+                if n_after != want:
+                    raise AssertionError(
+                        f"densify, {name}: {n_after} alive after, "
+                        f"{b['n']} + {rep[name + '_cloned']} + "
+                        f"{rep[name + '_split']} - {b['split']} - "
+                        f"{rep[name + '_pruned']} = {want} expected")
+                if (rep[name + "_cloned"] + rep[name + "_split"]
+                        + rep[name + "_dropped"]
+                        != b["clone"] + 2 * b["split"]):
+                    raise AssertionError(f"densify, {name}: copies written "
+                                         "and dropped do not add up")
+                new = after & ~b["alive"]
+                for f in fields:
+                    for mom in (o2.m.gaussians, o2.v.gaussians):
+                        if bool(getattr(mom, f)[new].any()):
+                            raise AssertionError(
+                                f"densify: moment of {f} not zero in a new "
+                                "slot")
+                b["new"] = int(new.sum())
+            rec = dict(iteration=self.trainer.iteration, device_ms=ms,
+                       report=rep, prune_big=bool(prune_big),
+                       over_threshold={k: (v["over"], v["n"])
+                                       for k, v in pre.items()},
+                       grad_median_p99_max={k: v["grad_q"]
+                                            for k, v in pre.items()})
+            self.densify.append(rec)
+            log(f"#   densify at {rec['iteration']}: {ms:.3f} device ms; "
+                f"{json.dumps(rep)}; over the grad threshold (of alive): "
+                f"{json.dumps(rec['over_threshold'])}, grads (median, "
+                f"p99, max) {json.dumps(rec['grad_median_p99_max'])}; "
+                "new slots "
+                f"{pre['scene']['new']} + {pre['obj']['new']}, moments zero; "
+                "alive counts add up")
+            return t2, o2, s2, out[3]
+        return densify
+
+    def _reset_opacity(self, orig):
+        def reset(trainables, opt_state):
+            torch = self.torch
+            (t2, o2), ms = cuda_timed(lambda: orig(trainables, opt_state))
+            st = self.trainer.state
+            g = t2.gaussians
+            act = torch.sigmoid(torch.cat([g.scene_opacity[st.scene_alive],
+                                           g.obj_opacity[st.obj_alive]]))
+            # the JAX test's bar: 0.01 + 1e-6 (logit and sigmoid round)
+            if float(act.max()) > 0.01 + 1e-6:
+                raise AssertionError(f"opacity reset: max alive opacity "
+                                     f"{float(act.max())}")
+            for mom in (o2.m.gaussians, o2.v.gaussians):
+                if bool(mom.scene_opacity.any() | mom.obj_opacity.any()):
+                    raise AssertionError("opacity reset: moments not zero")
+            self.resets.append((self.trainer.iteration, ms))
+            log(f"#   opacity reset at {self.trainer.iteration}: {ms:.3f} "
+                f"device ms; max alive opacity {float(act.max()):.6f}, "
+                "opacity moments zero")
+            return t2, o2
+        return reset
+
+    def _grow_capacity(self, orig):
+        def grow(trainables, opt_state, state, ns, no):
+            g = trainables.gaussians
+            out, ms = cuda_timed(lambda: orig(trainables, opt_state, state,
+                                              ns, no))
+            rec = (self.trainer.iteration, g.scene_capacity, g.obj_capacity,
+                   ns, no, ms)
+            self.grows.append(rec)
+            log(f"#   Gaussian capacity at {rec[0]}: scene {rec[1]} -> "
+                f"{ns}, obj {rec[2]} -> {no}; {ms:.3f} device ms")
+            return out
+        return grow
+
+    def refresh_near_idx_(self, orig):
+        probe = self
+
+        def refresh(tr):
+            _, ms = cuda_timed(lambda: orig(tr))
+            probe.check_refresh(tr, ms)
+        return refresh
+
+    def check_refresh(self, tr, ms):
+        """Every index of a valid group is an alive object slot and the
+        valid count is min(a_cap, n_alive // K); on the second refresh,
+        the groups' recall of the exact KNN of the same anchors."""
+        torch = self.torch
+        st = tr.state
+        K = tr.opt.near_num
+        a_cap = max(1, tr.params.obj_capacity // K)
+        idx, valid = st.obj_near_idx, st.obj_near_valid
+        n_alive = int(st.obj_alive.sum())
+        n_valid = int(valid.sum())
+        if tuple(idx.shape) != (a_cap, K) or n_valid != min(a_cap,
+                                                              n_alive // K):
+            raise AssertionError(f"KNN refresh: {tuple(idx.shape)} groups, "
+                                 f"{n_valid} valid for {n_alive} alive")
+        groups = idx[valid].long()
+        if not bool(st.obj_alive[groups].all()):
+            raise AssertionError("KNN refresh: a group holds a dead slot")
+        rec = dict(iteration=tr.iteration, device_ms=ms, valid=n_valid)
+        if len(self.refreshes) == 1:
+            from adgs_tpu_torch.ops.knn import knn_indices
+            pts = tr.params.obj_xyz
+            if tr.config.use_time_mask:
+                pts = torch.cat([pts, st.gs_time[:, None]
+                                 * tr.scene.scene_extent], 1)
+            alive_slots = torch.nonzero(st.obj_alive)[:, 0]
+            live = pts[alive_slots].cpu().numpy()
+            g = groups.cpu().numpy()
+            pos = torch.searchsorted(alive_slots,
+                                     groups[:, 0].contiguous()).cpu().numpy()
+            exact = alive_slots.cpu().numpy()[knn_indices(live[pos], live,
+                                                          K)]
+            rec["recall"] = self.recall = float(np.mean(
+                [len(set(a) & set(b)) / K for a, b in zip(g.tolist(),
+                                                          exact.tolist())]))
+        self.refreshes.append(rec)
+        log(f"#   KNN refresh at {tr.iteration}: {ms:.3f} device ms; "
+            f"{n_valid} valid groups of {K} over {n_alive} alive, all "
+            "alive object slots"
+            + (f"; recall of the exact KNN {rec['recall']:.4f}"
+               if "recall" in rec else ""))
+
+    def maybe_grow_instance_capacity_(self, orig):
+        probe = self
+
+        def grow(tr, num_rendered):
+            old = tr.capacity
+            orig(tr, num_rendered)
+            if tr.capacity != old:
+                probe.instance_grows.append(
+                    (tr.iteration, num_rendered, old, tr.capacity,
+                     num_rendered > old))
+                log(f"#   instance capacity at {tr.iteration}: {old} -> "
+                    f"{tr.capacity} for num_rendered {num_rendered}"
+                    + (" (overflow guard)" if num_rendered > old else ""))
+        return grow
+
+    def eval_render_fn_(self, orig):
+        def eval_render_fn(tr):
+            fn = orig(tr)
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                self.torch.cuda.synchronize()
+                self.eval_renders.append(time.perf_counter() - t0)
+                return out
+            return timed
+        return eval_render_fn
+
+    def evaluate_(self, orig):
+        def evaluate(tr, *a, **k):
+            return self._timed_s("evaluation", lambda: orig(tr, *a, **k))
+        return evaluate
+
+    def save_(self, orig):
+        def save(tr, *a, **k):
+            return self._timed_s("save", lambda: orig(tr, *a, **k))
+        return save
+
+
+def trainer_phase(cams, seed, dev, card):
+    """adgs_tpu_torch.cli.train at full width on a KITTI-format scene
+    (1242x375, KITTI P2's focal, the two poses, 10 frames: 8 train, 2
+    test) whose reader leaves ~1M Gaussians (~30% object), then cli.render
+    on the checkpoint; the checks and logs of TrainProbe, the launch
+    counts reset just before, and test frame 0 rendered at full SH degree
+    in memory and by cli.render within 1/255. Returns a summary."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from PIL import Image
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.cli import render as cli_render
+    from adgs_tpu_torch.cli import train as cli_train
+    from adgs_tpu_torch.render import make_staged_render_fn
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = [a if a != "configs/kitti-75.py" else os.path.join(here, a)
+            for a in train_args()]
+    log(f"# trainer ({card}): cli.train " + " ".join(train_args()))
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="adgs_train_") as tmp:
+        t0 = time.perf_counter()
+        scene = os.path.join(tmp, "scene")
+        model = os.path.join(tmp, "model")
+        pts, obj = train_scene_points(seed, cams, TRAIN_SCENE_POINTS,
+                                      TRAIN_OBJ_POINTS)
+        write_cli_scene(scene, seed, camera_poses(), WIDTH, HEIGHT, pts, obj)
+        seconds["scene write"] = time.perf_counter() - t0
+        log(f"#   scene: {len(pts) - int(obj.sum())} scene points on "
+            f"distinct voxels, {int(obj.sum())} object points in "
+            f"{TRAIN_CARS} boxes, written in {seconds['scene write']:.1f} s")
+        del pts, obj
+
+        probe = TrainProbe()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            trainer = cli_train.main(["-s", scene, "-m", model, "--seed",
+                                      str(seed), "--device", str(dev)] + args)
+            torch.cuda.synchronize()
+        finally:
+            probe.restore()
+            probe.trainer = None
+        total = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        seconds.update(probe.seconds)
+        seconds["training"] = total - sum(probe.seconds.values())
+        seconds["evaluation renders"] = sum(probe.eval_renders)
+        # TensorBoard's image panels, where it imports (PNG encoding)
+        seconds["evaluation panels"] = probe.panel_s
+
+        # the checks of the run as a whole
+        log(f"#   launches {launches}")
+        check_launched("cli.train", launches, TRAINING_KERNELS)
+        losses = torch.stack([s[2] for s in probe.steps]).cpu().numpy()
+        if len(losses) != trainer.iteration or not np.isfinite(losses).all():
+            raise AssertionError(f"cli.train losses: {losses}")
+        if not any(g[4] for g in probe.instance_grows):
+            raise AssertionError("no instance-capacity growth by the "
+                                 "overflow guard")
+        if not probe.grows:
+            raise AssertionError("no Gaussian-capacity growth")
+        reps = [d["report"] for d in probe.densify]
+        if not any(r["scene_cloned"] + r["obj_cloned"] for r in reps):
+            raise AssertionError("no densify wrote clones")
+        if not any(r["scene_split"] + r["obj_split"] for r in reps):
+            raise AssertionError("no densify wrote splits")
+        if not probe.resets or probe.recall is None:
+            raise AssertionError("no opacity reset or no KNN refresh")
+
+        # test frame 0 at full SH degree: in memory, then by cli.render
+        cfg = trainer.config
+        fn = make_staged_render_fn(cfg, active_sh_degree=cfg.sh_degree,
+                                   inv_depth=trainer.inv_depth,
+                                   capacity=trainer.capacity,
+                                   layout=trainer.layout)
+        cam, _, _ = trainer._get_frame("test", 0)
+        rays = trainer._rays_for(cam, trainer.scene.test_frames[0].cam_id)
+        out = fn(cam, trainer.params, trainer.state, trainer.env, rays)
+        mem = cli_render._to_uint8(torch.clamp(out["render"], 0.0, 1.0))
+        it = trainer.iteration
+        n_alive = int(trainer.state.num_scene) + int(trainer.state.num_obj)
+        ms_ema = trainer.timer.ema_s * 1e3
+        del out, fn, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli_render.main(["-m", model, "--skip_train", "--device", str(dev)])
+        torch.cuda.synchronize()
+        seconds["render"] = time.perf_counter() - t0
+        png = np.asarray(Image.open(os.path.join(
+            model, "test", f"ours_{it}", "renders", "00000.png")))
+        diff = np.abs(png.astype(np.int32) - mem.astype(np.int32))
+        log(f"#   test frame 0, in memory vs cli.render's PNG: max "
+            f"{int(diff.max())}/255, {int((diff > 0).sum())} of {diff.size} "
+            "values differ")
+        if png.shape != mem.shape or diff.max() > 1:
+            raise AssertionError("cli.render's PNG differs from the "
+                                 "in-memory render by more than 1/255")
+        with open(os.path.join(model, "results.json")) as f:
+            res = json.load(f)[f"ours_{it}"]
+
+    dens_its = {d["iteration"] for d in probe.densify}
+    plain = [s[1] for s in probe.steps if s[0] not in dens_its and s[0] > 1]
+    summary = dict(
+        seconds={k: round(v, 3) for k, v in seconds.items()},
+        steps=len(probe.steps), alive_after=n_alive,
+        step_timer_ms=ms_ema, median_step_ms_no_densify=float(np.median(plain)),
+        step_ms=[round(s[1], 3) for s in probe.steps],
+        losses=[round(float(x), 6) for x in losses],
+        densify=probe.densify, resets=probe.resets,
+        refreshes=probe.refreshes, knn_recall=probe.recall,
+        gaussian_growths=probe.grows, instance_growths=probe.instance_grows,
+        peak_gb=peak_gb, cli_render=res)
+    log(f"# trainer ({card}): " + json.dumps(summary))
+    log(f"# trainer ({card}): StepTimer {ms_ema:.3f} ms/step (EMA), median "
+        f"{summary['median_step_ms_no_densify']:.3f} ms over "
+        f"{len(plain)} steps without densify; peak {peak_gb:.2f} GB; "
+        f"seconds {json.dumps(summary['seconds'])}")
+    return summary
+
+
 def serve_phase(cfg, params, state, env, rays, reqs, capacity,
                 layout="gather"):
     """The serving path: every request through make_staged_render_fn, with
@@ -1296,12 +1820,12 @@ def train_inputs(device, seed, params, state, width, height):
     """bench.py's frame batch (uniform image, depth of ones, sky of zeros,
     30% object pixels, a uniform flow target at time 0.35) and the KNN
     groups of its regularizer variant: obj_capacity // 8 anchors of 8
-    neighbours among the alive object Gaussians (scipy cKDTree, as
-    adgs_tpu/ops/knn.py:knn_indices). Returns (batch, state)."""
+    neighbours among the alive object Gaussians (the port's exact
+    ops/knn.knn_indices). Returns (batch, state)."""
     import dataclasses
     import torch
-    from scipy.spatial import cKDTree
     from adgs_tpu_torch.ops.flow import FlowPackage
+    from adgs_tpu_torch.ops.knn import knn_indices
     from adgs_tpu_torch.train.losses import FrameBatch
 
     rng = np.random.default_rng(seed + 1)
@@ -1327,11 +1851,10 @@ def train_inputs(device, seed, params, state, width, height):
     assert alive[:no].all()        # alive object Gaussians come first
     a_cap = max(1, params.obj_capacity // k)
     n_anchor = min(max(no // k, 1), a_cap)
-    pts = params.obj_xyz[:no].cpu().numpy().astype(np.float64)
+    pts = params.obj_xyz[:no].cpu().numpy()
     anchors = rng.choice(no, n_anchor, replace=False)
-    _, idx = cKDTree(pts).query(pts[anchors], k=k, workers=-1)
     near = np.zeros((a_cap, k), np.int32)
-    near[:n_anchor] = idx
+    near[:n_anchor] = knn_indices(pts[anchors], pts, k)
     state = dataclasses.replace(
         state, obj_near_idx=torch.as_tensor(near, device=device),
         obj_near_valid=torch.as_tensor(np.arange(a_cap) < n_anchor,
@@ -1570,7 +2093,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"#   {src}: {line.strip()}")
 
-    kernels = run(dev, args.seed)
+    kernels = run(dev, args.seed, card)
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1580,8 +2103,9 @@ def main(argv=None) -> int:
     return 0
 
 
-def run(dev, seed: int) -> list:
-    """Phases 3-11 on `dev`; returns the kernels line's entries."""
+def run(dev, seed: int, card: str = "no card") -> list:
+    """Phases 3-12 on `dev` (`card`: the card's name and power limit, for
+    the trainer's lines); returns the kernels line's entries."""
     import torch
     from adgs_tpu_torch.render import make_staged_render_fn
     from adgs_tpu_torch.train.optim import TrainableState, init_adam
@@ -1686,7 +2210,12 @@ def run(dev, seed: int) -> list:
             if layout == "rows":
                 rows_bwd_launches = lc["composite_bwd"]
 
-    # 9. kernel parity at the slices' shapes, after the timed paths (the
+    # 9. the trainer: cli.train at full width, then cli.render on its
+    # checkpoint; after the timed paths, so that its grown model does
+    # not reach them, and its tensors are freed before the next phase
+    trainer_phase(cams, seed, dev, card)
+
+    # 10. kernel parity at the slices' shapes, after the timed paths (the
     # profiler sessions of the kernels' device times run here)
     log("# kernel parity")
     rec = kernel_phase(cfg, params, state, env, rays, reqs[0], capacity,
@@ -1695,7 +2224,7 @@ def run(dev, seed: int) -> list:
                           train_cam, batch, capacity, seed)
     segment_sum_cases(dev, seed)
 
-    # 10. the lab (E1, E2)
+    # 11. the lab (E1, E2)
     log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
     lab_recs, lab_launches = lab_phase(dev, seed)
     log(f"# lab launches {lab_launches}")
@@ -1709,7 +2238,7 @@ def run(dev, seed: int) -> list:
     rec["composite_fwd_rows"]["launches"] = cli["rows"][1]["composite_fwd"]
     rec["composite_bwd_rows"]["launches"] = rows_bwd_launches
 
-    # 11. times
+    # 12. times
     report_marks("frame", marks)
     log(f"# peak device memory: serving {serve_peak_gb:.2f} GB, training "
         f"{train_peak_gb:.2f} GB")

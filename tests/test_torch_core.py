@@ -134,3 +134,40 @@ def test_splines_kitti75(rng, key):
 def test_deboor_cox(order):
     np.testing.assert_array_equal(tspl.deboor_cox_matrix(order),
                                   jspl.deboor_cox_matrix(order))
+
+
+def _quats(rng):
+    q = rng.normal(size=(64, 4)).astype(np.float32)
+    q[0] = 0.0                           # a dead slot's zero quaternion
+    q[1] = [2.0, 0.0, 0.0, 0.0]          # zero vector part
+    return q
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_to_rotation_matrix(rng, normalized):
+    q = _quats(rng)
+    if normalized:
+        q[0] = [1.0, 0.0, 0.0, 0.0]
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    _close(tquat.to_rotation_matrix(_t(q), normalized=normalized),
+           jquat.to_rotation_matrix(jnp.asarray(q), normalized=normalized))
+
+
+@pytest.mark.parametrize("fn", ["log", "exp"])
+def test_quaternion_log_exp(rng, fn):
+    q = _quats(rng) * 0.7
+    q[2] = [0.3, 1e-9, 0.0, 0.0]         # below the small-angle guard
+    _close(getattr(tquat, fn)(_t(q)), getattr(jquat, fn)(jnp.asarray(q)))
+
+
+def test_sh_to_rgb(rng):
+    sh = rng.normal(size=(32, 1, 3)).astype(np.float32)
+    _close(tsh.sh_to_rgb(_t(sh)), jsh.sh_to_rgb(jnp.asarray(sh)))
+    np.testing.assert_allclose(tsh.sh_to_rgb(tsh.rgb_to_sh(_t(sh))).numpy(),
+                               sh, **TOL)
+
+
+def test_fov2focal():
+    for fov, px in ((1.1, 48), (0.3, 1242), (2.0, 375)):
+        assert tcam.fov2focal(fov, px) == jcam.fov2focal(fov, px)
+        assert abs(tcam.focal2fov(tcam.fov2focal(fov, px), px) - fov) < 1e-12

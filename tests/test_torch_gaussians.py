@@ -113,3 +113,17 @@ def test_deformed_package(rng, t):
     np.testing.assert_allclose(tgm.activated_scaling(tp).numpy(),
                                np.asarray(jgm.activated_scaling(params)),
                                **TOL)
+
+
+def test_alive_counts(rng):
+    """GaussianState.num_scene / num_obj: 0-d counts, as JAX's."""
+    _, _, state_j = _jax_model(rng)
+    leaves = _leaves(state_j)
+    leaves["obj_alive"][::3] = False
+    state_j = dataclasses.replace(state_j,
+                                  obj_alive=jnp.asarray(leaves["obj_alive"]))
+    state = convert.state_from_numpy(leaves, device="cpu")
+    for name in ("num_scene", "num_obj"):
+        got = getattr(state, name)
+        assert got.dim() == 0
+        assert int(got) == int(getattr(state_j, name)) > 0

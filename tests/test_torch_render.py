@@ -108,9 +108,10 @@ def test_default_device_needs_cuda(monkeypatch):
 # modules the walk must reach (the evaluation entry point and its
 # dependencies, and the lab), so that a package missing its __init__.py
 # cannot drop out of the check unnoticed
-NEEDED = ("cli.common", "cli.render", "data.colmap", "data.frames",
-          "data.ply", "data.readers", "exp.lab_rowmajor", "ops.lpips",
-          "train.checkpoint", "raster.render", "train.step")
+NEEDED = ("cli.common", "cli.render", "cli.train", "data.colmap",
+          "data.frames", "data.ply", "data.readers", "exp.lab_rowmajor",
+          "ops.knn", "ops.lpips", "profiling", "train.checkpoint",
+          "raster.render", "train.densify", "train.step", "train.trainer")
 
 
 def test_port_imports_no_jax():
