@@ -53,7 +53,26 @@ Phases (any failure exits non-zero before the last line is printed):
      in memory and by cli.render on the checkpoint within 1/255; seconds
      per part, ms/step, device ms of each densify, reset, refresh and
      growth, peak memory;
-10. kernel parity at the slices' shapes, each kernel against its plain
+10. the quality gate: adgs_tpu_torch.scripts.quality_gate at the JAX
+     gate's defaults (a 256x160 KITTI-format scene of 16 stereo
+     timestamps whose images are plain-PyTorch renders of 6,000 known
+     Gaussians, 3,000 init points, the 3x512x512 sky, 2,000 iterations,
+     evaluations every 250) under the trainer's checks and timers, launch
+     counts reset just before: every loss finite, all seven training
+     kernels launched,
+     the JAX gate's assertions (every PSNR finite, the test curve
+     monotone within 0.5 dB, a gain of at least 4 dB, a final test PSNR
+     of at least 22 dB); the curve printed beside the TPU's
+     (QUALITY_r05.json); seconds per part, ms/step, each densify's report
+     and alive counts, each capacity growth, the ground-truth renders'
+     largest num_rendered against their capacity; then, on the trained
+     model and training frame 0, B3 (ch=4 and ch=8, 1e-4, final T bitwise
+     its serial replay) and B4 (rtol 1e-3, atol 1e-5 max|twin|, into
+     buffers of NaN, tile order and zero rows bitwise) on the 160-tile
+     frame, B7 (bitwise) and B8 (as in phase 11) on the 3x512x512 sky at
+     the frame's coords and the extra coordinate fields, each also at
+     C = 1;
+11. kernel parity at the slices' shapes, each kernel against its plain
      PyTorch twin on the same inputs: B2 live compaction and B1 expansion
      bitwise (B1 also at a capacity below num_rendered), B3 compositing
      1e-4 at ch=4 and ch=8 (on the served frame, and at ch=8 on the
@@ -84,23 +103,23 @@ Phases (any failure exits non-zero before the last line is printed):
      and F.pad, B3 and B4 bitwise against their gather layout. This
      phase and the next run after the timed paths, so that their
      profiler sessions and allocations do not reach the timed steps;
- 11. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
+ 12. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
      their twins at 1e-5 of max|twin|, E1 also at one chunk a program
      over a program count that is not a multiple of 8, then the ported
      lab at its defaults with the launch counts reset just before;
- 12. times with CUDA events: ms per frame and per training step and ms
+ 13. times with CUDA events: ms per frame and per training step and ms
      per stage, all read from events recorded inside the requests and
      steps themselves, peak device memory, a torch.profiler view of one
      request and one step (top device ops, device busy share), and one
      JSON line ({"kernels": [...]}) with each kernel's launches on its
      path (training; B3 at ch=4 on serving, B6 and the rows B3 on
      cli.render's rows run, the rows B4 on the rows training steps, E1/E2
-     in the lab), its time by
+     in the lab) and on the quality gate ("gate_launches"), its time by
      CUDA events over calls enqueued back to back and its device time per
      call (torch.profiler, a few calls), its plain twin's time, its bound
      and, where one PyTorch call computes the same function, that call's
      two times.
-Phases 3-12 are `run(device, seed)`, which a CPU rehearsal can call at a
+Phases 3-13 are `run(device, seed)`, which a CPU rehearsal can call at a
 small size with host-side stand-ins for the CUDA timers.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -1363,12 +1382,13 @@ def cuda_timed(fn):
 
 
 class TrainProbe:
-    """Wraps what cli.train runs (read_scene, Trainer, its step, densify,
-    opacity reset, KNN refresh, capacity growths, evaluate, save) to
-    check each call and time it; `restore` puts every wrapped function
-    back."""
+    """Wraps what an entry point runs (read_scene, Trainer, its step,
+    densify, opacity reset, KNN refresh, capacity growths, evaluate, save)
+    to check each call and time it; `entry` is the module whose read_scene
+    and Trainer it calls (cli.train unless given). `restore` puts every
+    wrapped function back."""
 
-    def __init__(self):
+    def __init__(self, entry=None):
         import torch
         from adgs_tpu_torch.cli import train as cli_train
         from adgs_tpu_torch.train import densify as densify_mod
@@ -1383,8 +1403,9 @@ class TrainProbe:
         self.recall = None
         self._patches = []
         p = self._patch
-        p(cli_train, "read_scene", self._read_scene)
-        p(cli_train, "Trainer", self._make_trainer)
+        entry = entry or cli_train
+        p(entry, "read_scene", self._read_scene)
+        p(entry, "Trainer", self._make_trainer)
         p(densify_mod, "densify_and_prune", self._densify_and_prune)
         p(densify_mod, "reset_opacity", self._reset_opacity)
         p(densify_mod, "grow_capacity", self._grow_capacity)
@@ -1777,6 +1798,189 @@ def trainer_phase(cams, seed, dev, card):
     return summary
 
 
+# the quality gate: adgs_tpu_torch.scripts.quality_gate at the JAX gate's
+# defaults (scripts/quality_gate.py), held to its assertions and printed
+# beside the TPU's curve in QUALITY_r05.json
+GATE = dict(width=256, height=160, n_frames=16, n_gt=6000)
+GATE_ITERS, GATE_EVAL_EVERY = 2000, 250
+GATE_MIN_GAIN_DB, GATE_MIN_FINAL_DB = 4.0, 22.0
+
+
+def gate_phase(seed, dev, card):
+    """The port's quality gate on the card: build_gt_scene, then
+    quality_gate.main on it (2,000 iterations, evaluations every 250) under
+    TrainProbe's checks and timers, the launch counts reset just before;
+    JAX's assertions (finite, monotone within 0.5 dB, gain and final PSNR),
+    the curve beside the TPU's, then kernel parity at the gate's shapes on
+    the trained model. Returns a summary."""
+    import os
+    import tempfile
+    import torch
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.scripts import quality_gate as qg
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = [f"--{k}={v}" for k, v in GATE.items()] + [
+        f"--iters={GATE_ITERS}", f"--eval_every={GATE_EVAL_EVERY}",
+        f"--min_gain_db={GATE_MIN_GAIN_DB}",
+        f"--min_final_db={GATE_MIN_FINAL_DB}", f"--device={dev}"]
+    log(f"# quality gate ({card}): quality_gate " + " ".join(args))
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="adgs_gate_") as tmp:
+        t0 = time.perf_counter()
+        nr = qg.build_gt_scene(os.path.join(tmp, "scene"), **GATE, seed=seed,
+                               device=dev)
+        torch.cuda.synchronize()
+        seconds["scene build"] = time.perf_counter() - t0
+        log(f"#   ground truth: {GATE['n_frames'] * 2} renders, largest "
+            f"num_rendered {nr} of its capacity {qg.GT_CAPACITY}, "
+            f"{seconds['scene build']:.3f} s")
+        probe = TrainProbe(qg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            # main asserts as the JAX gate does (check_gate) and raises
+            result = qg.main(args + ["--scene_dir", tmp, "--out",
+                                     os.path.join(tmp, "QUALITY.json")])
+            torch.cuda.synchronize()
+            trainer = probe.trainer
+        finally:
+            probe.restore()
+            probe.trainer = None
+        total = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seconds.update(probe.seconds)
+    seconds["training"] = total - sum(probe.seconds.values())
+    seconds["evaluation renders"] = sum(probe.eval_renders)
+    seconds["evaluation panels"] = probe.panel_s
+    log(f"#   launches {launches}")
+    check_launched("quality gate", launches, TRAINING_KERNELS)
+    losses = torch.stack([s[2] for s in probe.steps]).cpu().numpy()
+    if len(losses) != GATE_ITERS or not np.isfinite(losses).all():
+        raise AssertionError(f"quality gate: {len(losses)} steps, losses "
+                             f"finite: {bool(np.isfinite(losses).all())}")
+
+    with open(os.path.join(here, "QUALITY_r05.json")) as f:
+        tpu = json.load(f)
+    log("#   curve (iteration: test PSNR, train PSNR, test SSIM; the port "
+        "on this card | the JAX package on a TPU v5e, QUALITY_r05.json):")
+    for i, it in enumerate(result["iters"]):
+        j = tpu["iters"].index(it) if it in tpu["iters"] else None
+        theirs = ("none" if j is None else
+                  f"{tpu['test_psnr'][j]:.3f}, {tpu['train_psnr'][j]:.3f}, "
+                  f"{tpu['test_ssim'][j]:.4f}")
+        log(f"#     {it:5d}: {result['test_psnr'][i]:.3f}, "
+            f"{result['train_psnr'][i]:.3f}, {result['test_ssim'][i]:.4f} | "
+            f"{theirs}")
+    log(f"#   final test PSNR {result['final_test_psnr']:.3f} (TPU "
+        f"{tpu['final_test_psnr']:.3f}, difference "
+        f"{result['final_test_psnr'] - tpu['final_test_psnr']:+.3f} dB), "
+        f"gain {result['gain_db']:.3f} dB, monotone {result['monotone_ok']}")
+
+    dens_its = {d["iteration"] for d in probe.densify}
+    plain = [s[1] for s in probe.steps if s[0] not in dens_its and s[0] > 1]
+    reps = [d["report"] for d in probe.densify]
+    summary = dict(
+        seconds={k: round(v, 3) for k, v in seconds.items()},
+        steps=len(probe.steps), step_timer_ms=trainer.timer.ema_s * 1e3,
+        median_step_ms_no_densify=float(np.median(plain)),
+        step_ms_p10_p90=[float(np.percentile(plain, q)) for q in (10, 90)],
+        alive_after=int(trainer.state.num_scene) + int(trainer.state.num_obj),
+        densifies=len(reps),
+        cloned=sum(r["scene_cloned"] + r["obj_cloned"] for r in reps),
+        split=sum(r["scene_split"] + r["obj_split"] for r in reps),
+        pruned=sum(r["scene_pruned"] + r["obj_pruned"] for r in reps),
+        gaussian_growths=probe.grows, instance_growths=probe.instance_grows,
+        refreshes=len(probe.refreshes), knn_recall=probe.recall,
+        gt_max_num_rendered=nr, peak_gb=peak_gb, launches=launches,
+        curve=result)
+    log(f"# quality gate ({card}): " + json.dumps(summary))
+    log(f"# quality gate ({card}): StepTimer "
+        f"{summary['step_timer_ms']:.3f} ms/step (EMA), median "
+        f"{summary['median_step_ms_no_densify']:.3f} ms over {len(plain)} "
+        f"steps without densify; {len(reps)} densifies wrote "
+        f"{summary['cloned']} clones and {summary['split']} splits; peak "
+        f"{peak_gb:.2f} GB; seconds {json.dumps(summary['seconds'])}")
+    gate_kernel_parity(trainer, seed)
+    return summary
+
+
+def gate_kernel_parity(tr, seed) -> None:
+    """B3, B4, B7 and B8 against their twins at the gate's shapes, on the
+    trained model and training frame 0: B3 at ch=4 and ch=8 (1e-4, final
+    T bitwise its serial replay), B4 at ch=8 with N(0,1) cotangents (rtol
+    1e-3, atol 1e-5 max|twin|, into buffers of NaN, its tile order and
+    its zero rows bitwise), B7 bitwise and B8 as check_sky_scatter holds it
+    on the 3x512^2 sky at the frame's coords and at sky_coord_cases', also
+    at C = 1."""
+    import torch
+    from adgs_tpu_torch.ops import grid_sample as gs
+    from adgs_tpu_torch.raster import render as rl
+
+    cam, _, _ = tr._get_frame("train", 0)
+    rays = tr._rays_for(cam, tr.scene.train_frames[0].cam_id)
+    with torch.no_grad():
+        st, prep, binning = frame_inputs(tr.config, tr.params, tr.state, cam,
+                                         tr.capacity)
+    nr = int(binning.num_rendered)
+    tc = tile_count_stats(binning.tile_count)
+    log(f"# kernel parity at the gate's shapes: frame {st.image_width}x"
+        f"{st.image_height}, {tc['tiles']} tiles, {nr} instances (capacity "
+        f"{tr.capacity}); per tile mean {tc['mean']:.1f}, p99 "
+        f"{tc['p99']:.1f}, max {tc['max']}; sky {tuple(tr.env.grid.shape)}")
+    if nr > tr.capacity:
+        raise AssertionError("gate frame: instance overflow")
+    gen = torch.Generator(device=prep.mean2d.device).manual_seed(seed)
+    for ch in (4, 8):
+        with torch.no_grad():
+            packed = composite_rows(tr.config, tr.params, prep,
+                                    cam.time + 0.01, ch)
+        fargs = (packed, ch, binning.gauss_id, binning.tile_start,
+                 binning.tile_count, st.grid_x)
+        blended, final_t = rl.composite_fwd(*fargs)
+        bp, tp = rl.composite_fwd_torch(*fargs)
+        check_close(f"B3 gate ch={ch} blended", blended, bp, 1e-4, 1e-4)
+        check_close(f"B3 gate ch={ch} final_t", final_t, tp, 1e-4, 1e-4)
+        check_final_t(f"B3 gate ch={ch} final_t", final_t,
+                      rl.composite_final_t_serial(*fargs))
+    # B4 at the training width (ch=8, the last packed above)
+    fwd_out = torch.cat([blended, final_t[:, None]], 1).contiguous()
+    g_out = torch.randn(fwd_out.shape, generator=gen, device=fwd_out.device)
+    bargs = (packed, ch, binning.gauss_id, binning.slot_sorted,
+             binning.tile_start, binning.tile_count, st.grid_x, fwd_out, g_out)
+    rows, order = b4_buffers(binning, ch, packed.device)
+    rl.composite_bwd_into(rows, order, *bargs)
+    check_bitwise("B4 gate tile order (longest first) vs a stable sort",
+                  order, torch.sort(binning.tile_count, descending=True,
+                                    stable=True).indices.to(torch.int32))
+    total = int(binning.tile_start[-1] + binning.tile_count[-1])
+    check_bitwise(f"B4 gate rows past the {total} valid instances: zeros",
+                  rows[total:], torch.zeros_like(rows[total:]))
+    rows_p = rl.composite_bwd_torch(*bargs)
+    check_close("B4 gate composite_bwd rows", rows, rows_p,
+                1e-5 * float(rows_p.abs().max()), 1e-3)
+
+    grid = tr.env.grid
+    coords = sky_coords(rays, cam)
+    shape = tuple(grid.shape)
+    grid1 = grid[:1].contiguous()
+    cases = [("gate's sky coords", coords)] + sky_coord_cases(coords, shape,
+                                                              gen)
+    g_sky = torch.randn((shape[0],) + tuple(coords.shape[:-1]), generator=gen,
+                        device=grid.device)
+    for label, c in cases:
+        check_bitwise(f"B7 gate grid_sample vs its twin ({label})",
+                      gs.grid_sample(grid, c), gs.grid_sample_torch(grid, c))
+        check_bitwise(f"B7 gate grid_sample vs its twin ({label}, C=1)",
+                      gs.grid_sample(grid1, c), gs.grid_sample_torch(grid1, c))
+        check_sky_scatter(f"gate, {label}", g_sky, c, shape)
+        check_sky_scatter(f"gate, {label}, C=1", g_sky[:1].contiguous(), c,
+                          (1,) + shape[1:])
+
+
 def serve_phase(cfg, params, state, env, rays, reqs, capacity,
                 layout="gather"):
     """The serving path: every request through make_staged_render_fn, with
@@ -2104,8 +2308,9 @@ def main(argv=None) -> int:
 
 
 def run(dev, seed: int, card: str = "no card") -> list:
-    """Phases 3-12 on `dev` (`card`: the card's name and power limit, for
-    the trainer's lines); returns the kernels line's entries."""
+    """Phases 3-13 on `dev` (`card`: the card's name and power limit, for
+    the trainer's and the gate's lines); returns the kernels line's
+    entries."""
     import torch
     from adgs_tpu_torch.render import make_staged_render_fn
     from adgs_tpu_torch.train.optim import TrainableState, init_adam
@@ -2215,7 +2420,11 @@ def run(dev, seed: int, card: str = "no card") -> list:
     # not reach them, and its tensors are freed before the next phase
     trainer_phase(cams, seed, dev, card)
 
-    # 10. kernel parity at the slices' shapes, after the timed paths (the
+    # 10. the quality gate (and kernel parity at its shapes), before the
+    # profiler sessions of the next phases
+    gate = gate_phase(seed, dev, card)
+
+    # 11. kernel parity at the slices' shapes, after the timed paths (the
     # profiler sessions of the kernels' device times run here)
     log("# kernel parity")
     rec = kernel_phase(cfg, params, state, env, rays, reqs[0], capacity,
@@ -2224,7 +2433,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
                           train_cam, batch, capacity, seed)
     segment_sum_cases(dev, seed)
 
-    # 11. the lab (E1, E2)
+    # 12. the lab (E1, E2)
     log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
     lab_recs, lab_launches = lab_phase(dev, seed)
     log(f"# lab launches {lab_launches}")
@@ -2238,7 +2447,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
     rec["composite_fwd_rows"]["launches"] = cli["rows"][1]["composite_fwd"]
     rec["composite_bwd_rows"]["launches"] = rows_bwd_launches
 
-    # 12. times
+    # 13. times
     report_marks("frame", marks)
     log(f"# peak device memory: serving {serve_peak_gb:.2f} GB, training "
         f"{train_peak_gb:.2f} GB")
@@ -2267,6 +2476,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
             replaces=meta["replaces"],
             launches=r.get("launches", launches[name]),
             serve_launches=serve_launches[name],
+            gate_launches=gate["launches"][name],
             max_abs_err=r["max_abs_err"], max_abs_diff=r["max_abs_err"],
             ms=r["ms"], kernel_ms=r["ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"], bound_ms=max(t_bytes, t_ops),

@@ -111,7 +111,8 @@ def test_default_device_needs_cuda(monkeypatch):
 NEEDED = ("cli.common", "cli.render", "cli.train", "data.colmap",
           "data.frames", "data.ply", "data.readers", "exp.lab_rowmajor",
           "ops.knn", "ops.lpips", "profiling", "train.checkpoint",
-          "raster.render", "train.densify", "train.step", "train.trainer")
+          "raster.render", "scripts.quality_gate", "train.densify",
+          "train.step", "train.trainer")
 
 
 def test_port_imports_no_jax():
