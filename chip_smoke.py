@@ -119,7 +119,28 @@ Phases (any failure exits non-zero before the last line is printed):
      call (torch.profiler, a few calls), its plain twin's time, its bound
      and, where one PyTorch call computes the same function, that call's
      two times.
-Phases 3-13 are `run(device, seed)`, which a CPU rehearsal can call at a
+14. scene preparation: a street of known geometry (ground, facades, end
+     walls, four car-sized boxes, one moving; dot-textured so that feature
+     centres are 3D points) written as a raw KITTI-MOT tracking layout
+     (28 stereo timestamps of 1242x375 PNGs at KITTI P2's focal, velodyne
+     sweeps of 120,000 returns, OXTS, calib) and as a Waymo segment (20
+     packed frames: a 64x2650 TOP range image swept over 0.1 s with its
+     per-pixel poses, a 1920x1280 FRONT JPEG), then the port's chain on the
+     card: convert_kitti --use_color, pseudo labels from the ground truth
+     (import_semantic_masks, import_depth_maps, package_scene_flow),
+     segment_pcd, triangulate --window 4, validate_scene, cli.train -c
+     configs/kitti-75.py for 20 iterations, and convert_waymo --use_color
+     --use_depth. The first calls of each stage function are kept and
+     replayed by the port on the CPU: integer, boolean, id and depth-map
+     outputs bitwise, float32 within one float32 ulp, float64 within 1e-9
+     relative (DLT points on the tracks whose eigenvalue gap fixes them),
+     match sets equal but for queries within 1e-5 of the ratio cut
+     (counted); convert_kitti's and triangulate's whole runs on the CPU,
+     timed beside the card's, their files compared; every checked LiDAR
+     point tagged with its own box's id; 90% of the triangulated static
+     points within 0.1 m of the street; every Waymo point within 0.01 m of
+     it; every cli.train loss finite; seconds per stage, counts.
+Phases 3-14 are `run(device, seed)`, which a CPU rehearsal can call at a
 small size with host-side stand-ins for the CUDA timers.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -2265,6 +2286,1040 @@ def check_launched(path, launches, names) -> None:
                                  f"{path} path")
 
 
+# ---------------------------------------------------------------------------
+# 14. scene preparation: a street of known geometry written as a raw
+# KITTI-MOT tracking layout and as a Waymo segment, prepared by the port's
+# scripts on the card (each stage held to the port's CPU run on the same
+# inputs), then trained on by cli.train
+# ---------------------------------------------------------------------------
+PREP_TIMESTAMPS = 28              # KITTI stereo timestamps (56 images)
+PREP_SIZE = (1242, 375)           # KITTI image width x height
+PREP_BEAMS, PREP_AZIMUTHS = 64, 1875   # an HDL-64E sweep: 120,000 returns
+PREP_INCL = (2.0, -24.8)          # its beams' inclinations (degrees)
+PREP_SS = 3                       # supersamples per axis of a rendered pixel
+PREP_ITERS = 20                   # cli.train iterations on the written scene
+PREP_ENV_RES = ENV_RES            # its sky's resolution
+PREP_RECORD = 2                   # calls per stage held to the CPU run
+WAYMO_FRAMES = 20
+WAYMO_RI = (64, 2650)             # TOP range image rows x columns
+WAYMO_IMAGE = (1920, 1280)        # FRONT camera width x height
+WAYMO_FOCAL = 2055.0
+WAYMO_MAX_RANGE = 75.0
+WAYMO_SPEED = 10.0                # m/s; frames at 10 Hz, sweeps of 0.1 s
+# the street: ground z = 0, facades at y = +-STREET up to FACADE_H along
+# x in FACADE_X, end walls at x = WALLS, car-sized boxes (id k + 1) at
+# (x + speed * t, y)
+STREET, FACADE_H, WALLS = 6.0, 14.0, (-80.0, 230.0)
+FACADE_X = (-80.0, PREP_TIMESTAMPS + 20.0)   # 20 m past the drive's end
+BOXES = ((18.0, -3.5, 0.6), (30.0, 4.0, 0.0), (45.0, -4.5, 0.0),
+         (60.0, 4.5, 0.0))        # x, y (m), speed (m per KITTI frame)
+BOX_SIZE = (4.2, 1.8, 1.5)
+IMU_H = 0.93                      # KITTI's IMU height over the ground
+VELO_IN_IMU = (0.81, -0.32, 0.80)
+STEREO_BASELINE = 0.54
+SKY_RGB = (135.0, 190.0, 235.0)
+CELL, DOT = 0.5, 0.35              # texture cell (m), dot radius / cell
+# the triangulated static points: this share within this distance (m) of
+# the street's static surfaces
+PREP_NEAR_SHARE, PREP_NEAR_M = 0.9, 0.1
+
+
+class StreetWorld:
+    """Ray casting against the street (float64, on `dev`): the nearest hit
+    of each ray, its surface and its id (-1 sky, 0 static, k box k), and a
+    blocky colour hashed from 0.5 m cells (0.25 m on the boxes)."""
+
+    def __init__(self, dev):
+        import torch
+        self.torch = torch
+        self.dev = dev
+        self.size = torch.tensor(BOX_SIZE, dtype=torch.float64, device=dev)
+
+    def boxes(self, t):
+        """[B, 2, 3] lower and upper corners at KITTI frame time t."""
+        torch = self.torch
+        c = torch.tensor([[x + v * t, y, BOX_SIZE[2] / 2]
+                          for x, y, v in BOXES], dtype=torch.float64,
+                         device=self.dev)
+        return torch.stack([c - self.size / 2, c + self.size / 2], 1)
+
+    def cast(self, o, d, t):
+        """o, d [N, 3] float64 (d need not be unit): (distance along d
+        [N], inf on a miss; surface [N]; id [N])."""
+        torch = self.torch
+        inf = torch.full(d.shape[:1], math.inf, dtype=torch.float64,
+                         device=self.dev)
+        best, surf = inf.clone(), torch.full_like(inf, -1, dtype=torch.long)
+
+        def take(k, s, ok):
+            ok = ok & (s > 1e-6) & (s < best)
+            best[ok] = s[ok]
+            surf[ok] = k
+
+        s = -o[:, 2] / d[:, 2]
+        take(0, s, d[:, 2] < 0)                               # ground
+        for k, (axis, level, sign) in enumerate(
+                ((1, STREET, 1), (1, -STREET, -1),
+                 (0, WALLS[1], 1), (0, WALLS[0], -1)), start=1):
+            s = (level - o[:, axis]) / d[:, axis]
+            z = o[:, 2] + s * d[:, 2]
+            ok = (sign * d[:, axis] > 0) & (z >= 0) & (z <= FACADE_H)
+            if axis == 1:
+                x = o[:, 0] + s * d[:, 0]
+                ok &= (x >= FACADE_X[0]) & (x <= FACADE_X[1])
+            take(k, s, ok)
+        lohi = self.boxes(t)
+        for b in range(len(BOXES)):
+            t0 = (lohi[b, 0] - o) / d
+            t1 = (lohi[b, 1] - o) / d
+            near = torch.minimum(t0, t1).nan_to_num(-math.inf).amax(1)
+            far = torch.maximum(t0, t1).nan_to_num(math.inf).amin(1)
+            take(5 + b, near, (near <= far) & (far > 0))
+        ident = torch.where(surf >= 5, surf - 4, 0)
+        ident = torch.where(surf < 0, -1, ident)
+        return best, surf, ident
+
+    def colour(self, p, surf):
+        """[N, 3] float64 colours in [0, 255] of hits p on surfaces surf:
+        on the static surfaces one dark dot (0.1 m radius, hashed place and
+        colour) in each 0.5 m cell of a plain background, whose centre is
+        a well-defined point for a feature detector; blocky hashed cells
+        of 0.25 m tinted by box on the boxes."""
+        torch = self.torch
+        cell = torch.where(surf[:, None] >= 5, 0.25, CELL)
+        q = p / cell
+        ij = torch.floor(q).long()
+        f = q - ij
+        a_ax = torch.where((surf == 3) | (surf == 4), 1, 0)
+        b_ax = torch.where(surf == 0, 1, 2)
+        a = ij.gather(1, a_ax[:, None])[:, 0]
+        b = ij.gather(1, b_ax[:, None])[:, 0]
+        fa = f.gather(1, a_ax[:, None])[:, 0]
+        fb = f.gather(1, b_ax[:, None])[:, 0]
+        b = torch.where(surf >= 5, b + ij[:, 1] * 7, b)
+        h = (a * 73856093) ^ (b * 19349663) ^ ((surf + 3) * 83492791)
+        h = (h * 2654435761) & 0xFFFFFFFF
+        byte = [((h >> s) & 255).double() / 255.0 for s in (0, 8, 16, 24, 4)]
+        rgb = torch.stack(byte[:3], 1)
+        ground = torch.tensor([[150, 150, 150], [200, 185, 160],
+                               [180, 190, 205], [170, 170, 170],
+                               [170, 170, 170]], dtype=torch.float64,
+                              device=self.dev)
+        ca, cb = 0.25 + 0.5 * byte[3], 0.25 + 0.5 * byte[4]
+        dot = (fa - ca) ** 2 + (fb - cb) ** 2 < DOT ** 2
+        static = torch.where(dot[:, None], 20.0 + 90.0 * rgb,
+                             ground[torch.clamp(surf, 0, 4)])
+        box = torch.tensor([[230, 40, 40], [40, 200, 60], [60, 80, 230],
+                            [230, 210, 40]], dtype=torch.float64,
+                           device=self.dev)
+        tint = box[torch.clamp(surf - 5, 0, len(BOXES) - 1)]
+        out = torch.where(surf[:, None] >= 5, 0.6 * tint + 70.0 * rgb,
+                          static)
+        sky = torch.tensor(SKY_RGB, dtype=torch.float64, device=self.dev)
+        return torch.where(surf[:, None] < 0, sky, out)
+
+    def render(self, R, T, K, width, height, t, ss=1):
+        """A pinhole view (world-to-camera R, T; K [3, 3]): uint8 image
+        [H, W, 3] averaged over ss x ss samples a pixel, and at the pixel
+        centres the id [H, W] and the camera depth [H, W] (inf on sky).
+        Pixel (i, j) looks along the ray through (u, v) = (j, i)."""
+        torch = self.torch
+        dev = self.dev
+        R = torch.as_tensor(R, dtype=torch.float64, device=dev)
+        T = torch.as_tensor(T, dtype=torch.float64, device=dev)
+        K = torch.as_tensor(K, dtype=torch.float64, device=dev)
+        centre = -R.T @ T
+        v, u = torch.meshgrid(torch.arange(height, dtype=torch.float64,
+                                           device=dev),
+                              torch.arange(width, dtype=torch.float64,
+                                           device=dev), indexing="ij")
+
+        def rays(du, dv):
+            x = (u.reshape(-1) + du - K[0, 2]) / K[0, 0]
+            y = (v.reshape(-1) + dv - K[1, 2]) / K[1, 1]
+            dcam = torch.stack([x, y, torch.ones_like(x)], 1)
+            return dcam @ R                                   # R^T dcam
+        o = centre.expand(width * height, 3)
+        img = torch.zeros((width * height, 3), dtype=torch.float64,
+                          device=dev)
+        offs = [(k + 0.5) / ss - 0.5 for k in range(ss)]
+        for du in offs:
+            for dv in offs:
+                d = rays(du, dv)
+                s, surf, _ = self.cast(o, d, t)
+                img += self.colour(o + s[:, None] * d, surf)
+        img = torch.round(img / (ss * ss)).clamp(0, 255).to(torch.uint8)
+        s, _, ident = self.cast(o, rays(0.0, 0.0), t)
+        return (img.view(height, width, 3), ident.view(height, width),
+                s.view(height, width))
+
+    def static_distance(self, p):
+        """[N] distance of points p [N, 3] to the nearest static surface."""
+        torch = self.torch
+        z = p[:, 2]
+        facade = torch.minimum((p[:, 1] - STREET).abs(),
+                               (p[:, 1] + STREET).abs())
+        facade = facade + (FACADE_X[0] - p[:, 0]).clamp(min=0) \
+            + (p[:, 0] - FACADE_X[1]).clamp(min=0)
+        walls = torch.minimum((p[:, 0] - WALLS[1]).abs(),
+                              (p[:, 0] - WALLS[0]).abs())
+        up = torch.where((z >= 0) & (z <= FACADE_H), 0.0,
+                         torch.minimum(z.abs(), (z - FACADE_H).abs()))
+        return torch.minimum(z.abs(), torch.minimum(facade, walls) + up)
+
+    def box_of(self, p, t, tol=0.02):
+        """[N] id of the box whose surface holds each point (within tol)
+        at frame times t [N], 0 where none does."""
+        torch = self.torch
+        out = torch.zeros(len(p), dtype=torch.long, device=self.dev)
+        for tt in torch.unique(t).tolist():
+            sel = t == tt
+            lohi = self.boxes(tt)
+            for b in range(len(BOXES)):
+                q = p[sel]
+                inside = ((q >= lohi[b, 0] - tol)
+                          & (q <= lohi[b, 1] + tol)).all(1)
+                core = ((q > lohi[b, 0] + tol) & (q < lohi[b, 1] - tol)).all(1)
+                idx = torch.nonzero(sel)[:, 0]
+                out[idx[inside & ~core]] = b + 1
+        return out
+
+
+def kitti_oxts(n):
+    """[n, 30] OXTS rows: the IMU at IMU_H over the ground at (0, 0),
+    driving +x at 1 m a frame and weaving by +-0.4 m, heading along its
+    path (lat/lon by the converter's mercator, scale 1 at latitude 0)."""
+    r_earth = 6378137.0
+    t = np.arange(n, dtype=np.float64)
+    x, y = t, 0.4 * np.sin(t / 6.0)
+    rows = np.zeros((n, 30))
+    rows[:, 0] = 360.0 / np.pi * np.arctan(np.exp(y / r_earth)) - 90.0
+    rows[:, 1] = x * 180.0 / (np.pi * r_earth)
+    rows[:, 2] = IMU_H
+    rows[:, 5] = np.arctan2(0.4 / 6.0 * np.cos(t / 6.0), 1.0)
+    return rows
+
+
+def kitti_calib():
+    """(P2, P3, T_velo2cam, T_imu2velo): KITTI P2's focal; the velodyne
+    centre at the left camera's (so each sweep sees what that camera
+    sees), its axes the velodyne's (x forward, y left, z up)."""
+    W, H = PREP_SIZE
+    K = np.array([[FOCAL, 0, W / 2.0], [0, FOCAL, H / 2.0], [0, 0, 1.0]])
+    P2 = K @ np.concatenate([np.eye(3), np.zeros((3, 1))], 1)
+    P3 = K @ np.concatenate([np.eye(3), [[-STEREO_BASELINE], [0], [0]]], 1)
+    velo2cam = np.array([[0, -1, 0, 0], [0, 0, -1, 0], [1, 0, 0, 0],
+                         [0, 0, 0, 1.0]])
+    imu2velo = np.eye(4)
+    imu2velo[:3, 3] = -np.asarray(VELO_IN_IMU)
+    return P2, P3, velo2cam, imu2velo
+
+
+def kitti_poses(oxts):
+    """Per frame the IMU-to-world matrix the converter builds from the OXTS
+    rows (scripts/convert_kitti.py's chain, before its rebase)."""
+    from adgs_tpu_torch.scripts.convert_kitti import rotation_from_rpy
+    r_earth = 6378137.0
+    scale = np.cos(oxts[0][0] * np.pi / 180)
+    out = []
+    for o in oxts:
+        m = np.eye(4)
+        m[:3, :3] = rotation_from_rpy(o[3], o[4], o[5])
+        m[:3, 3] = [scale * r_earth * (np.pi * o[1]) / 180,
+                    scale * r_earth * np.log(np.tan((np.pi * (90 + o[0]))
+                                                    / 360)), o[2]]
+        out.append(m)
+    return out
+
+
+def write_raw_kitti(root, world, seed, dev):
+    """The raw KITTI-MOT tracking layout of scripts/convert_kitti.py for the
+    street: PREP_TIMESTAMPS stereo PNGs, velodyne sweeps of PREP_BEAMS x
+    PREP_AZIMUTHS returns, OXTS and calib. Returns the ground truth per
+    image (world-to-camera RT [3, 4], id map, depth map, time) and the
+    IMU-to-world matrix of frame 0."""
+    import os
+    import torch
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    scene, part = "0001", "training"
+    dirs = dict(
+        left=os.path.join(root, "data_tracking_image_2", part, "image_02",
+                          scene),
+        right=os.path.join(root, "data_tracking_image_3", part, "image_03",
+                           scene),
+        oxts=os.path.join(root, "data_tracking_oxts", part, "oxts"),
+        calib=os.path.join(root, "data_tracking_calib", part, "calib"),
+        velo=os.path.join(root, "data_tracking_velodyne", part, "velodyne",
+                          scene))
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    W, H = PREP_SIZE
+    P2, P3, velo2cam, imu2velo = kitti_calib()
+    K = P2[:, :3]
+    oxts = kitti_oxts(PREP_TIMESTAMPS)
+    np.savetxt(os.path.join(dirs["oxts"], scene + ".txt"), oxts)
+    def row(label, m):
+        return label + " " + " ".join(f"{v:.17g}" for v in m.ravel())
+    lines = [row("P0:", P2), row("P1:", P2), row("P2:", P2), row("P3:", P3),
+             row("R_rect", np.eye(3)), row("Tr_velo_cam", velo2cam[:3]),
+             row("Tr_imu_velo", imu2velo[:3])]
+    with open(os.path.join(dirs["calib"], scene + ".txt"), "w") as f:
+        f.write("\n".join(lines))
+
+    imu2cam = velo2cam @ imu2velo
+    incl = np.deg2rad(np.linspace(PREP_INCL[0], PREP_INCL[1], PREP_BEAMS))
+    az = np.linspace(np.pi, -np.pi, PREP_AZIMUTHS, endpoint=False)
+    dirs_velo = torch.as_tensor(np.stack(np.broadcast_arrays(
+        np.cos(incl)[:, None] * np.cos(az)[None],
+        np.cos(incl)[:, None] * np.sin(az)[None],
+        np.sin(incl)[:, None]), -1).reshape(-1, 3), device=dev)
+    truth = []
+    for t, imu2world in enumerate(kitti_poses(oxts)):
+        name = f"{t:06d}.png"
+        world2imu = np.linalg.inv(imu2world)
+        for side, off, folder in (("left", 0.0, "left"),
+                                  ("right", -STEREO_BASELINE, "right")):
+            RT = np.concatenate([np.eye(3), [[off], [0], [0]]], 1) @ (
+                imu2cam @ world2imu)
+            img, ident, depth = world.render(RT[:, :3], RT[:, 3], K, W, H, t,
+                                             PREP_SS)
+            Image.fromarray(img.cpu().numpy()).save(
+                os.path.join(dirs[folder], name), compress_level=1)
+            truth.append(dict(RT=RT, ident=ident, depth=depth, t=t))
+        velo2world = torch.as_tensor(imu2world @ np.linalg.inv(imu2velo),
+                                     device=dev)
+        o = velo2world[:3, 3].expand(len(dirs_velo), 3)
+        d = dirs_velo @ velo2world[:3, :3].T
+        s, _, _ = world.cast(o, d, t)
+        if not bool(torch.isfinite(s).all()):
+            raise AssertionError("a velodyne beam left the street")
+        p_velo = dirs_velo * s[:, None]
+        sweep = torch.cat([p_velo, torch.as_tensor(
+            rng.uniform(size=(len(p_velo), 1)), device=dev)], 1)
+        sweep.float().cpu().numpy().tofile(
+            os.path.join(dirs["velo"], f"{t:06d}.bin"))
+    return truth, kitti_poses(oxts)[0], scene
+
+
+def prep_pseudo_labels(dst, truth, dev):
+    """The external nets' outputs for the KITTI scene, from the world's
+    ground truth, through the port's packagers: instance ids, sky masks,
+    min-max normalised inverse depth, and point tracks of every object
+    pixel of each train image to the train frames slide_window = 4
+    timestamps away (the tracked point moves with its box; visible where
+    it lies in the target image within 5% of the target's depth)."""
+    import torch
+    from adgs_tpu_torch.geometry import pseudo_labels as pk
+    names = [f"{i:06d}" for i in range(len(truth))]
+    pk.import_semantic_masks(dst, {
+        n: torch.clamp(g["ident"], min=0).to(torch.int32).cpu().numpy()
+        for n, g in zip(names, truth)})
+    pk.import_semantic_masks(dst, {n: (g["ident"] < 0).cpu().numpy()
+                                   for n, g in zip(names, truth)},
+                             kind="sky")
+    pk.import_depth_maps(dst, {
+        n: torch.where(torch.isfinite(g["depth"]), 1.0 / g["depth"], 0.0)
+        .cpu().numpy() for n, g in zip(names, truth)})
+
+    W, H = PREP_SIZE
+    K = torch.as_tensor(kitti_calib()[0][:, :3], device=dev)
+    speed = torch.tensor([0.0] + [b[2] for b in BOXES],
+                         dtype=torch.float64, device=dev)
+    n_ts = len(truth) // 2
+    val = set(range(4, n_ts, 4))                   # nvs-75
+    train_idx = [i for i in range(len(truth)) if i // 2 not in val]
+    step, window = 8, 4
+
+    def track(src, q, tgt):
+        g, h = truth[src], truth[tgt]
+        qi = q.long()
+        z = g["depth"][qi[:, 1], qi[:, 0]]
+        ident = g["ident"][qi[:, 1], qi[:, 0]]
+        RT = torch.as_tensor(g["RT"], device=dev)
+        pc = torch.stack([(q[:, 0] - K[0, 2]) / K[0, 0] * z,
+                          (q[:, 1] - K[1, 2]) / K[1, 1] * z, z], 1)
+        pw = (pc - RT[:, 3]) @ RT[:, :3]
+        pw[:, 0] += speed[ident] * (h["t"] - g["t"])
+        RT2 = torch.as_tensor(h["RT"], device=dev)
+        pc2 = pw @ RT2[:, :3].T + RT2[:, 3]
+        uv = (pc2 @ K.T)[:, :2] / pc2[:, 2:]
+        r = torch.round(uv).long()
+        inside = ((pc2[:, 2] > 0) & (r[:, 0] >= 0) & (r[:, 0] < W)
+                  & (r[:, 1] >= 0) & (r[:, 1] < H))
+        rc = torch.where(inside[:, None], r, 0)
+        seen = (h["depth"][rc[:, 1], rc[:, 0]] - pc2[:, 2]).abs() \
+            < 0.05 * pc2[:, 2]
+        return uv.cpu().numpy(), (inside & seen).float().cpu().numpy()
+
+    tracks = {}
+    for p, g in enumerate(train_idx):
+        q = pk.queries_from_mask(truth[g]["ident"] > 0)
+        if not len(q):
+            continue
+        tr = {"query": q.cpu().numpy()}
+        if p // 2 < len(train_idx) // 2 - window:
+            tr["fwd"], tr["fwd_vis"] = track(g, q, train_idx[p + step])
+        if p // 2 >= window:
+            tr["bwd"], tr["bwd_vis"] = track(g, q, train_idx[p - step])
+        tracks[g] = tr
+    return pk.package_scene_flow(dst, tracks=tracks, slide_window=window,
+                                 split_mode="nvs-75", device=dev)
+
+
+def waymo_extrinsics():
+    """(TOP lidar extrinsic, its beam inclinations ascending, FRONT camera
+    extrinsic, intrinsic [9]): the lidar yawed by 2.6 rad (its azimuth
+    correction wraps), beams denser near the horizon."""
+    lid = np.eye(4)
+    lid[:2, :2] = [[np.cos(2.6), -np.sin(2.6)], [np.sin(2.6), np.cos(2.6)]]
+    lid[:3, 3] = [1.43, 0.0, 2.18]
+    s = np.linspace(0.0, 1.0, WAYMO_RI[0])
+    incl = np.deg2rad(2.4 - 20.0 * (1.0 - s) ** 1.4)
+    cam = np.eye(4)
+    cam[:3, 3] = [1.5, 0.0, 2.0]
+    W, H = WAYMO_IMAGE
+    intr = np.array([WAYMO_FOCAL, WAYMO_FOCAL, W / 2.0, H / 2.0, 0, 0, 0, 0,
+                     0])
+    return lid, incl, cam, intr
+
+
+def yaw_pose(yaw, xyz):
+    m = np.eye(4)
+    m[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    m[:3, 3] = xyz
+    return m
+
+
+# the segment's original world: the street yawed by 0.3 rad and moved
+WAYMO_WORLD = yaw_pose(0.3, (1000.0, 500.0, 30.0))
+
+
+def waymo_vehicle(tau):
+    """Vehicle-to-street pose at time tau (s): driving +x at WAYMO_SPEED
+    from x = 2, weaving by +-0.5 m, heading along its path."""
+    x = 2.0 + WAYMO_SPEED * tau
+    return yaw_pose(np.arctan2(0.5 * 0.8 * np.cos(0.8 * tau), WAYMO_SPEED),
+                    (x, 0.5 * np.sin(0.8 * tau), 0.0))
+
+
+def write_waymo_segment(path, world, seed, dev):
+    """A Waymo segment of WAYMO_FRAMES frames of the street (packed
+    MatrixFloat data): a TOP range image [64, 2650, 4] whose columns are
+    swept over 0.1 s (per-pixel poses in the original world, returns beyond
+    WAYMO_MAX_RANGE empty) and a FRONT JPEG. Returns the frame-0 vehicle
+    pose in the original world."""
+    import io
+    import torch
+    from PIL import Image
+    from adgs_tpu_torch.data import lidar, tfrecord
+    from adgs_tpu_torch.data import waymo_proto as wp
+    rng = np.random.default_rng(seed + 1)
+    lid, incl, cam, intr = waymo_extrinsics()
+    rows, cols = WAYMO_RI
+    W, H = WAYMO_IMAGE
+    K = np.array([[intr[0], 0, intr[2]], [0, intr[1], intr[3]], [0, 0, 1]])
+    az = lidar.azimuths(cols, torch.as_tensor(lid, device=dev))
+    inc = torch.as_tensor(incl[::-1].copy(), device=dev)
+    d_sensor = torch.stack(torch.broadcast_tensors(
+        torch.cos(az)[None] * torch.cos(inc)[:, None],
+        torch.sin(az)[None] * torch.cos(inc)[:, None],
+        torch.sin(inc)[:, None].expand(rows, cols)), -1)       # [R, C, 3]
+    lid_t = torch.as_tensor(lid, device=dev)
+    records = []
+    for f in range(WAYMO_FRAMES):
+        taus = f * 0.1 + (np.arange(cols) / cols - 0.5) * 0.1
+        street = np.stack([waymo_vehicle(tau) for tau in taus])  # [C,4,4]
+        st = torch.as_tensor(street, device=dev) @ lid_t
+        o = st[:, :3, 3][None].expand(rows, cols, 3).reshape(-1, 3)
+        d = (st[None, :, :3, :3] @ d_sensor[..., None])[..., 0].reshape(-1, 3)
+        s, _, _ = world.cast(o, d, f)
+        rng_img = torch.where(s <= WAYMO_MAX_RANGE, s, 0.0).view(rows, cols)
+        ri = np.zeros((rows, cols, 4), np.float32)
+        ri[..., 0] = rng_img.cpu().numpy()
+        ri[..., 1] = rng.uniform(size=(rows, cols))
+        orig = WAYMO_WORLD @ street                              # [C, 4, 4]
+        pose = np.zeros((rows, cols, 6), np.float32)
+        pose[..., 2] = np.arctan2(orig[:, 1, 0], orig[:, 0, 0])[None]
+        pose[..., 3:] = orig[None, :, :3, 3]
+        ego = WAYMO_WORLD @ waymo_vehicle(f * 0.1)
+        RT = np.linalg.inv(ego @ cam @ lidar.OPENCV2DATASET)     # orig->cam
+        RT = RT @ WAYMO_WORLD                                    # street->cam
+        img, _, _ = world.render(RT[:3, :3], RT[:3, 3], K, W, H, f)
+        buf = io.BytesIO()
+        Image.fromarray(img.cpu().numpy()).save(buf, format="JPEG",
+                                                quality=92)
+        records.append(wp.encode_frame(
+            pose=ego, timestamp_micros=100_000 * f,
+            camera_calibrations=[dict(name=1, intrinsic=intr, extrinsic=cam,
+                                      width=W, height=H)],
+            laser_calibrations=[dict(name=wp.LASER_TOP,
+                                     beam_inclinations=incl,
+                                     beam_inclination_min=float(incl[0]),
+                                     beam_inclination_max=float(incl[-1]),
+                                     extrinsic=lid)],
+            images=[dict(name=1, image=buf.getvalue())],
+            lasers=[dict(name=wp.LASER_TOP, range_image=ri,
+                         range_image_pose=pose)], packed=True))
+    tfrecord.write_records(path, records)
+    return WAYMO_WORLD @ waymo_vehicle(0.0)
+
+
+class StageRecorder:
+    """Wraps stage functions of the port so that their first PREP_RECORD
+    calls on the card keep their inputs and outputs (copied to the host)
+    and every call its seconds; `replay` runs the same function on the CPU
+    on the kept inputs."""
+
+    def __init__(self):
+        self.calls, self.seconds, self._patches = {}, {}, []
+
+    def wrap(self, owner, name, key=None):
+        import torch
+        key = key or name
+        orig = getattr(owner, name)
+        self._patches.append((owner, name, orig))
+        self.calls[key] = []
+        self.seconds[key] = 0.0
+
+        def fn(*a, **k):
+            keep = len(self.calls[key]) < PREP_RECORD
+            if keep:
+                inputs = (to_host(a), to_host(k))
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            if keep:
+                self.calls[key].append((orig, inputs, to_host(out)))
+            return out
+        setattr(owner, name, fn)
+
+    def restore(self):
+        for owner, name, orig in reversed(self._patches):
+            setattr(owner, name, orig)
+        self._patches = []
+
+    def replay(self, key):
+        """[(card output, CPU output, inputs)] of the kept calls."""
+        out = []
+        for orig, (a, k), card in self.calls[key]:
+            out.append((card, orig(*a, **k), (a, k)))
+        return out
+
+
+def to_host(x):
+    """x with every tensor copied to the host and every device the CPU."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, torch.device):
+        return torch.device("cpu")
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[to_host(v) for v in x])
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    return x
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def check_ulp(name, card, cpu, rel=None):
+    """float32: within one float32 ulp at the row's magnitude; float64:
+    within 1e-9 relative at the row's magnitude (rel overrides)."""
+    a, b = _np(card), _np(cpu)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        raise AssertionError(f"{name}: {a.dtype} {a.shape} vs {b.dtype} "
+                             f"{b.shape}")
+    scale = np.maximum(np.abs(a), np.abs(b))
+    if scale.ndim > 1:
+        scale = scale.max(-1, keepdims=True)
+    if a.dtype == np.float32 and rel is None:
+        tol = np.spacing(scale.astype(np.float32)).astype(np.float64)
+    else:
+        tol = (1e-9 if rel is None else rel) * scale
+    diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    if not (diff <= tol).all():
+        raise AssertionError(f"{name}: {int((diff > tol).sum())} of "
+                             f"{diff.size} values beyond tolerance, max "
+                             f"{float(diff.max()):.3e}")
+    return float(diff.max()) if diff.size else 0.0
+
+
+def check_stage(rec, key, compare):
+    """Replays the kept calls of a stage on the CPU and compares; returns
+    the number of calls held."""
+    pairs = rec.replay(key)
+    if len(pairs) < min(PREP_RECORD, 1):
+        raise AssertionError(f"stage {key} was never called")
+    for i, (card, cpu, inputs) in enumerate(pairs):
+        compare(f"{key} call {i}", card, cpu, inputs)
+    log(f"#   {key}: {len(pairs)} calls held to the CPU run")
+    return len(pairs)
+
+
+def cmp_uv_mask(name, card, cpu, _):
+    check_ulp(name + " uv", card[0], cpu[0])
+    check_bitwise(name + " mask", card[1], cpu[1])
+
+
+def cmp_colour(name, card, cpu, _):
+    """The sweep's colours are float32 sums, each rounded, of float64 taps
+    at coordinates the card's and the CPU's matmuls give to 1e-9: two
+    roundings, so two float32 ulps (the taps themselves are held to 1e-9
+    as bilinear_sample)."""
+    a, b = _np(card[0]), _np(cpu[0])
+    scale = np.maximum(np.abs(a), np.abs(b)).max(-1, keepdims=True)
+    tol = 2 * np.spacing(scale.astype(np.float32)).astype(np.float64)
+    diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    if not (diff <= tol).all():
+        raise AssertionError(f"{name} colour: {int((diff > tol).sum())} "
+                             "values beyond two float32 ulps")
+    check_bitwise(name + " mask", card[1], cpu[1])
+
+
+def cmp_project(name, card, cpu, _):
+    check_ulp(name + " uv", card[0], cpu[0])
+    check_ulp(name + " depth", card[1][:, None], cpu[1][:, None])
+    check_bitwise(name + " mask", card[2], cpu[2])
+
+
+def cmp_float(name, card, cpu, _):
+    check_ulp(name, card, cpu)
+
+
+def cmp_from_f32(name, card, cpu, _):
+    """float64 values carried from float32 ones: one float32 ulp."""
+    check_ulp(name, card, cpu, rel=2.4e-7)
+
+
+def cmp_bits(name, card, cpu, _):
+    check_bitwise(name, card, cpu)
+
+
+def match_ratio_gap(a, b, qa):
+    """|d0 / d1 - 0.8| of queries qa (float64 direct distances)."""
+    import torch
+    d = ((a[qa, None, :].double() - b[None].double()) ** 2).sum(-1).sqrt()
+    d2 = torch.topk(d, 2, dim=1, largest=False).values
+    return (d2[:, 0] / d2[:, 1] - 0.8).abs()
+
+
+def cmp_matches(counter):
+    """Match sets equal except queries whose ratio lies within 1e-5 of the
+    0.8 cut (counted)."""
+    def cmp(name, card, cpu, inputs):
+        a, b = inputs[0][0], inputs[0][1]
+        sa = {tuple(r) for r in _np(card).tolist()}
+        sb = {tuple(r) for r in _np(cpu).tolist()}
+        diff = sorted({q for q, _ in sa ^ sb})
+        counter["matches"] += len(sa)
+        if diff:
+            gap = match_ratio_gap(a, b, diff) if len(b) > 1 else None
+            if gap is None or bool((gap > 1e-5).any()):
+                raise AssertionError(f"{name}: {len(diff)} queries match "
+                                     "differently away from the ratio cut")
+            counter["near_cut"] += len(diff)
+    return cmp
+
+
+def dlt_normal_matrices(obs, tracks, proj):
+    """[M, 4, 4] float64 trace-normalised A^T A of each track (on the
+    CPU), the matrix whose smallest eigenvector is its DLT point."""
+    import torch
+    track_of = torch.as_tensor(tracks.track_of)
+    sel = track_of >= 0
+    t_id = track_of[sel]
+    P = proj.double()[obs.frame[sel]]
+    xy = obs.xy[sel].double()
+    r0 = xy[:, 0:1] * P[:, 2, :] - P[:, 0, :]
+    r1 = xy[:, 1:2] * P[:, 2, :] - P[:, 1, :]
+    ata = torch.zeros((tracks.n_tracks, 4, 4), dtype=torch.float64)
+    ata.index_add_(0, t_id, r0[:, :, None] * r0[:, None, :])
+    ata.index_add_(0, t_id, r1[:, :, None] * r1[:, None, :])
+    d = torch.diagonal(ata, dim1=1, dim2=2).sum(1).clamp(min=1e-24)
+    return ata / d[:, None, None]
+
+
+def dlt_objective(A, xyz):
+    """[M] h^T A h of the unit homogeneous points h ~ (xyz, 1)."""
+    import torch
+    h = torch.cat([xyz, torch.ones_like(xyz[:, :1])], 1)
+    h = h / h.norm(dim=1, keepdim=True)
+    return (h[:, None, :] @ A @ h[:, :, None])[:, 0, 0]
+
+
+def prep_timed(seconds, key, fn):
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds[key] = time.perf_counter() - t0
+    return out
+
+
+def prep_phase(seed, dev, card):
+    """Phase 14 (see the module docstring). Returns a summary."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.cli import train as cli_train
+    from adgs_tpu_torch.data import lidar
+    from adgs_tpu_torch.data.ply import read_ply
+    from adgs_tpu_torch.geometry import pseudo_labels as pk
+    from adgs_tpu_torch.geometry import segment as seg
+    from adgs_tpu_torch.geometry import triangulate as tri
+    from adgs_tpu_torch.scripts import (convert_kitti, convert_waymo,
+                                        segment_pcd, triangulate,
+                                        validate_scene)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    world = StreetWorld(dev)
+    card_s, cpu_s = {}, {}
+    counts = dict(matches=0, near_cut=0)      # over the held pairs
+    summary = {}
+    W, H = PREP_SIZE
+    log(f"# prep ({card}): raw KITTI-MOT {PREP_TIMESTAMPS} stereo "
+        f"timestamps at {W}x{H}, sweeps of {PREP_BEAMS * PREP_AZIMUTHS} "
+        f"returns; Waymo {WAYMO_FRAMES} frames, TOP {WAYMO_RI[0]}x"
+        f"{WAYMO_RI[1]}, FRONT {WAYMO_IMAGE[0]}x{WAYMO_IMAGE[1]} JPEG")
+    with tempfile.TemporaryDirectory(prefix="adgs_prep_") as tmp:
+        raw = os.path.join(tmp, "raw")
+        truth, imu0, scene = prep_timed(card_s, "write raw KITTI",
+                                        lambda: write_raw_kitti(
+                                            raw, world, seed, dev))
+        kargs = [raw, None, scene, "--first_frame", "0", "--last_frame",
+                 str(PREP_TIMESTAMPS - 1), "--use_color", "--seed",
+                 str(seed)]
+        # the converter on the CPU, then on the card with its stages kept
+        cpu_root, root = os.path.join(tmp, "cpu"), os.path.join(tmp, "card")
+        prep_timed(cpu_s, "convert_kitti", lambda: convert_kitti.main(
+            [a or cpu_root for a in kargs] + ["--device", "cpu"]))
+        rec = StageRecorder()
+        for name in ("project_sweep", "bilinear_sample", "colour_sweep"):
+            rec.wrap(convert_kitti, name)
+        try:
+            prep_timed(card_s, "convert_kitti", lambda: convert_kitti.main(
+                [a or root for a in kargs] + ["--device", str(dev)]))
+        finally:
+            rec.restore()
+        dst = os.path.join(root, scene)
+        check_stage(rec, "project_sweep", cmp_uv_mask)
+        check_stage(rec, "bilinear_sample", cmp_float)
+        check_stage(rec, "colour_sweep", cmp_colour)
+        compare_prep_files(os.path.join(cpu_root, scene), dst)
+
+        # pseudo labels, then object tagging, then triangulation
+        rec = StageRecorder()
+        rec.wrap(pk, "queries_from_mask")
+        rec.wrap(pk, "tracks_to_flow")
+        try:
+            written = prep_timed(card_s, "pseudo labels",
+                                 lambda: prep_pseudo_labels(dst, truth, dev))
+        finally:
+            rec.restore()
+        check_stage(rec, "queries_from_mask", cmp_bits)
+        check_stage(rec, "tracks_to_flow", cmp_bits)
+        summary["flow packages"] = len(written)
+
+        rec = StageRecorder()
+        rec.wrap(seg, "tag_points_one_frame")
+        try:
+            prep_timed(card_s, "segment_pcd", lambda: segment_pcd.main(
+                [dst, "--device", str(dev)]))
+        finally:
+            rec.restore()
+        check_stage(rec, "tag_points_one_frame", cmp_bits)
+        summary["tags"] = check_tags(dst, truth, imu0, world)
+
+        shutil.copytree(dst, os.path.join(tmp, "cpu_tri"),
+                        ignore=shutil.ignore_patterns("flow", "depth"))
+        prep_timed(cpu_s, "triangulate", lambda: triangulate.main(
+            [os.path.join(tmp, "cpu_tri"), "--window", "4", "--device",
+             "cpu"]))
+        rec = StageRecorder()
+        for name in ("detect_features", "match_descriptors", "build_tracks",
+                     "triangulate_tracks", "filter_tracks"):
+            rec.wrap(tri, name)
+        try:
+            prep_timed(card_s, "triangulate", lambda: triangulate.main(
+                [dst, "--window", "4", "--device", str(dev)]))
+        finally:
+            rec.restore()
+        summary["triangulate seconds"] = {k: round(v, 3) for k, v in
+                                          rec.seconds.items()}
+        check_stage(rec, "match_descriptors", cmp_matches(counts))
+        summary.update(check_dlt(rec, dst, imu0, world))
+        a = read_ply(os.path.join(tmp, "cpu_tri", "colmap-75.ply"))
+        b = read_ply(os.path.join(dst, "colmap-75.ply"))
+        check_bitwise("colmap-75 colours (card vs CPU run)",
+                      *(torch.as_tensor(np.stack([v["red"], v["green"],
+                                                  v["blue"]]))
+                        for v in (b, a)))
+        summary["held matches"] = counts["matches"]
+        summary["near_cut"] = counts["near_cut"]
+
+        # exits non-zero (SystemExit) on any problem with the contract
+        prep_timed(card_s, "validate_scene", lambda: validate_scene.main(
+            [dst, "--device", str(dev)]))
+
+        # cli.train on the written scene
+        probe = TrainProbe()
+        model = os.path.join(tmp, "model")
+        _kernels.reset_launches()
+        try:
+            prep_timed(card_s, "cli.train", lambda: cli_train.main(
+                ["-s", dst, "-m", model, "-c",
+                 os.path.join(here, "configs", "kitti-75.py"),
+                 "--iterations", str(PREP_ITERS), "--env_resolution",
+                 str(PREP_ENV_RES), "--seed", str(seed), "--device",
+                 str(dev)]))
+        finally:
+            probe.restore()
+            probe.trainer = None
+        launches = dict(_kernels.launches)
+        check_launched("cli.train on the prepared scene", launches,
+                       TRAINING_KERNELS)
+        summary["train launches"] = launches
+        losses = torch.stack([s[2] for s in probe.steps]).cpu().numpy()
+        if len(losses) != PREP_ITERS or not np.isfinite(losses).all():
+            raise AssertionError(f"cli.train on the prepared scene: losses "
+                                 f"{losses}")
+        summary["train losses"] = [round(float(x), 6) for x in losses]
+        summary["train seconds"] = {k: round(v, 3)
+                                    for k, v in probe.seconds.items()}
+        ply = read_ply(os.path.join(dst, "points3d-75.ply"))
+        summary["points3d-75"] = len(ply["x"])
+        shutil.rmtree(root)
+        shutil.rmtree(cpu_root)
+
+        # Waymo
+        seg_path = os.path.join(tmp, "segment.tfrecord")
+        pose0 = prep_timed(card_s, "write Waymo segment",
+                           lambda: write_waymo_segment(seg_path, world, seed,
+                                                       dev))
+        summary["segment MB"] = round(os.path.getsize(seg_path) / 2 ** 20, 1)
+        wargs = [seg_path, None, "--use_color", "--use_depth", "--seed",
+                 str(seed)]
+        rec = StageRecorder()
+        rec.wrap(convert_waymo, "frame_points")
+        for name in ("range_image_to_points", "project_points",
+                     "sample_colors_aligned", "lidar_depth_map"):
+            rec.wrap(lidar, name)
+        try:
+            prep_timed(card_s, "convert_waymo", lambda: convert_waymo.main(
+                [a or os.path.join(tmp, "waymo") for a in wargs]
+                + ["--device", str(dev)]))
+        finally:
+            rec.restore()
+        check_stage(rec, "range_image_to_points", cmp_float)
+        check_stage(rec, "frame_points", cmp_from_f32)
+        check_stage(rec, "project_points", cmp_project)
+        check_stage(rec, "sample_colors_aligned", cmp_float)
+        check_stage(rec, "lidar_depth_map", cmp_bits)
+        summary["waymo"] = check_waymo(os.path.join(tmp, "waymo"), pose0,
+                                       world)
+    summary["card seconds"] = {k: round(v, 3) for k, v in card_s.items()}
+    summary["cpu seconds"] = {k: round(v, 3) for k, v in cpu_s.items()}
+    summary["phase seconds"] = round(time.perf_counter() - t_phase, 3)
+    log(f"# prep ({card}): " + json.dumps(summary))
+    for k in cpu_s:
+        log(f"# prep ({card}): {k}: card {card_s[k]:.3f} s, CPU "
+            f"{cpu_s[k]:.3f} s (the port's CPU run on the same machine)")
+    return summary
+
+
+def compare_prep_files(cpu_dst, card_dst):
+    """The converter's files written on the card against its CPU run's:
+    poses.npz and the PLYs' times bitwise, xyz within one float32 ulp at the
+    point's magnitude, colours within 1 of 255 (a float32 ulp of the
+    colour may cross an integer)."""
+    import os
+    import torch
+    from adgs_tpu_torch.data.ply import read_ply
+    with np.load(os.path.join(cpu_dst, "poses.npz")) as a, \
+            np.load(os.path.join(card_dst, "poses.npz")) as b:
+        for k in a.files:
+            check_bitwise(f"poses.npz {k}", torch.as_tensor(b[k]),
+                          torch.as_tensor(a[k]))
+    for split in ("25", "50", "75"):
+        a = read_ply(os.path.join(cpu_dst, f"points3d-{split}.ply"))
+        b = read_ply(os.path.join(card_dst, f"points3d-{split}.ply"))
+        check_bitwise(f"points3d-{split} t", torch.as_tensor(b["t"]),
+                      torch.as_tensor(a["t"]))
+        check_ulp(f"points3d-{split} xyz",
+                  *(np.stack([v["x"], v["y"], v["z"]], 1) for v in (b, a)))
+        for c in ("red", "green", "blue"):
+            d = np.abs(b[c].astype(int) - a[c].astype(int))
+            if d.max() > 1:
+                raise AssertionError(f"points3d-{split} {c}: {d.max()}")
+
+
+def check_tags(dst, truth, imu0, world):
+    """Every object box's points, and only those, carry its id after
+    segment_pcd: on the points whose sampled id in every train view of
+    their timestamp that sees them is their own box's (0 for the static
+    world), the tag is exact; the others (silhouettes, and ground seen by
+    the left camera but hidden from the right by a box) are counted."""
+    import os
+    import torch
+    from adgs_tpu_torch.data.ply import fetch_point_cloud
+    dev = world.dev
+    pts, _, t, obj = fetch_point_cloud(os.path.join(dst, "points3d-75.ply"))
+    p_conv = torch.as_tensor(pts, device=dev).double()
+    imu0 = torch.as_tensor(imu0, device=dev)
+    p = p_conv @ imu0[:3, :3].T + imu0[:3, 3]           # the street's frame
+    t = torch.as_tensor(t, device=dev)
+    obj = torch.as_tensor(obj, device=dev).long()
+    gt = world.box_of(p, t.double())
+    W, H = PREP_SIZE
+    with np.load(os.path.join(dst, "poses.npz")) as m:
+        R, T = m["R"], m["T"]
+    K = torch.as_tensor(kitti_calib()[0][:, :3], device=dev)
+    clean = torch.ones(len(p), dtype=torch.bool, device=dev)
+    seen_any = torch.zeros(len(p), dtype=torch.bool, device=dev)
+    for i, g in enumerate(truth):
+        sel = t == g["t"]
+        cam = p_conv[sel] @ torch.as_tensor(R[i], device=dev).T \
+            + torch.as_tensor(T[i], device=dev)
+        uvw = cam @ K.T
+        z = torch.where(uvw[:, 2] > 0, uvw[:, 2], 1.0)
+        px, py = uvw[:, 0] / z, uvw[:, 1] / z
+        view = (uvw[:, 2] > 0) & (px > 0) & (px < W) & (py > 0) & (py < H)
+        ix = torch.round(px * (W - 1) / W).long().clamp(0, W - 1)
+        iy = torch.round(py * (H - 1) / H).long().clamp(0, H - 1)
+        seen = torch.clamp(g["ident"][iy, ix], min=0)
+        idx = torch.nonzero(sel)[:, 0]
+        clean[idx[view & (seen != gt[sel])]] = False
+        seen_any[idx[view]] = True
+    clean &= seen_any
+    bad = clean & (obj != gt)
+    n_box = [int((clean & (gt == k)).sum()) for k in range(1, len(BOXES) + 1)]
+    out = dict(points=len(p), tagged=int((obj > 0).sum()),
+               checked=int(clean.sum()), not_checked=int((~clean).sum()),
+               not_checked_tagged=int((~clean & (obj > 0)).sum()),
+               box_points_checked=n_box)
+    log(f"#   segment_pcd: {json.dumps(out)}")
+    if int(bad.sum()):
+        raise AssertionError(f"segment_pcd: {int(bad.sum())} checked points "
+                             "carry another id than their box's")
+    if min(n_box) == 0:
+        raise AssertionError("segment_pcd: a box has no checked points")
+    return out
+
+
+def check_dlt(rec, dst, imu0, world):
+    """The DLT and the filters on the card against the CPU on the same
+    inputs: valid and keep flags bitwise; points within 1e-9 relative,
+    except tracks (counted, with their eigenvalue gaps) whose smallest
+    eigenvectors the two eigensolvers place differently: there the card's
+    point must minimise the DLT objective h^T A h as closely as the CPU's
+    (to 1e-13, the trace normalised to 1); the written static points on
+    the street's static surfaces (PREP_NEAR_SHARE within PREP_NEAR_M)."""
+    import os
+    import torch
+    from adgs_tpu_torch.data.ply import fetch_point_cloud
+    (card_xyz, card_valid), (cpu_xyz, cpu_valid), (a, _) = \
+        rec.replay("triangulate_tracks")[0]
+    obs, tracks, proj = a
+    check_bitwise("triangulate_tracks valid", card_valid, cpu_valid)
+    # points beyond 1e-9 relative must minimise the DLT's objective as
+    # well as the CPU's do: their eigenvalue gap leaves them unfixed
+    scale = torch.maximum(card_xyz.abs(), cpu_xyz.abs()).amax(1)
+    off = ((card_xyz - cpu_xyz).abs().amax(1) > 1e-9 * scale) & cpu_valid
+    A = dlt_normal_matrices(obs, tracks, proj)[off]
+    excess = (dlt_objective(A, card_xyz[off])
+              - dlt_objective(A, cpu_xyz[off]))
+    w = torch.linalg.eigvalsh(A)
+    gap = (w[:, 1] - w[:, 0]) if len(w) else w
+    excess_max = float(excess.abs().max()) if len(excess) else 0.0
+    if excess_max > 1e-13:
+        raise AssertionError(f"triangulate_tracks: {int(off.sum())} points "
+                             "beyond 1e-9 relative, and the card's do not "
+                             "minimise the DLT objective to 1e-13 "
+                             f"({excess_max:.3e})")
+    card_keep, cpu_keep, _ = rec.replay("filter_tracks")[0]
+    check_bitwise("filter_tracks keep", card_keep, cpu_keep)
+    n_obs = int((torch.as_tensor(tracks.track_of) >= 0).sum())
+    xyz, _, _, _ = fetch_point_cloud(os.path.join(dst, "colmap-75.ply"))
+    imu0 = torch.as_tensor(imu0, device=world.dev)
+    p = torch.as_tensor(xyz, device=world.dev).double() @ imu0[:3, :3].T \
+        + imu0[:3, 3]
+    dist = world.static_distance(p)
+    near = float((dist < PREP_NEAR_M).double().mean()) if len(p) else 0.0
+    out = dict(keypoints=int(obs.offset[-1]), matched_observations=n_obs,
+               tracks=tracks.n_tracks, valid=int(card_valid.sum()),
+               kept=int(card_keep.sum()), written=len(xyz),
+               off_1e9=int(off.sum()),
+               off_1e9_max_rel=float(((card_xyz - cpu_xyz).abs().amax(1)
+                                      / scale)[off].max()) if int(off.sum())
+               else 0.0,
+               off_1e9_objective_excess=excess_max,
+               off_1e9_max_gap=float(gap.max()) if len(gap) else None,
+               near_static_surfaces=round(near, 4),
+               median_distance_m=float(dist.median()) if len(p) else None)
+    log(f"#   triangulate: {json.dumps(out)}")
+    if near < PREP_NEAR_SHARE:
+        raise AssertionError(f"triangulate: {near:.4f} of the static points "
+                             f"within {PREP_NEAR_M} m of the known surfaces "
+                             f"(< {PREP_NEAR_SHARE})")
+    return out
+
+
+def check_waymo(dst, pose0, world):
+    """The Waymo converter's cloud lies on the street (every point within
+    0.01 m of a surface: the rolling-shutter poses undone), with the
+    reader contract's files."""
+    import os
+    import torch
+    from adgs_tpu_torch.data.ply import fetch_point_cloud
+    with np.load(os.path.join(dst, "cameras.npz")) as m:
+        n_img, is_val = len(m["R"]), m["is_val_list"]
+    pts, _, t, _ = fetch_point_cloud(os.path.join(dst, "points3d.ply"))
+    back = torch.as_tensor(np.linalg.inv(WAYMO_WORLD) @ pose0,
+                           device=world.dev)
+    p = torch.as_tensor(pts, device=world.dev).double() @ back[:3, :3].T \
+        + back[:3, 3]
+    dist = torch.minimum(world.static_distance(p),
+                         box_distance(world, p, torch.as_tensor(
+                             t, device=world.dev).double()))
+    out = dict(images=n_img, val=int(is_val.sum()), points=len(pts),
+               max_distance_m=float(dist.max()),
+               depth_maps=len(os.listdir(os.path.join(dst, "lidar_depth"))))
+    log(f"#   convert_waymo: {json.dumps(out)}")
+    if out["max_distance_m"] > 0.01 or out["depth_maps"] != WAYMO_FRAMES:
+        raise AssertionError(f"convert_waymo: {out}")
+    return out
+
+
+def box_distance(world, p, t):
+    """[N] distance of points to the nearest box surface at frame times t
+    (KITTI frames: Waymo frame f uses the boxes of time f)."""
+    import torch
+    out = torch.full((len(p),), math.inf, dtype=torch.float64,
+                     device=world.dev)
+    for tt in torch.unique(t).tolist():
+        sel = t == tt
+        lohi = world.boxes(tt)
+        for b in range(len(BOXES)):
+            q = p[sel]
+            c = (lohi[b, 0] + lohi[b, 1]) / 2
+            h = (lohi[b, 1] - lohi[b, 0]) / 2
+            d = (q - c).abs() - h
+            outside = d.clamp(min=0).norm(dim=1)
+            inside = d.amax(1).clamp(max=0).abs()
+            out[sel] = torch.minimum(out[sel], outside + inside)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2502,6 +3557,9 @@ def run(dev, seed: int, card: str = "no card") -> list:
     log(f"# B4 pairs replayed at ch=8: {int(pairs.hit)} composited, "
         f"{int(pairs.gated)} gated or stopping")
     log(f"# B7 distinct tapped cells: {rec['grid_sample']['distinct_cells']}")
+
+    # 14. scene preparation, then cli.train on the scene it wrote
+    prep_phase(seed, dev, card)
     return kernels
 
 

@@ -112,7 +112,13 @@ NEEDED = ("cli.common", "cli.render", "cli.train", "data.colmap",
           "data.frames", "data.ply", "data.readers", "exp.lab_rowmajor",
           "ops.knn", "ops.lpips", "profiling", "train.checkpoint",
           "raster.render", "scripts.quality_gate", "train.densify",
-          "train.step", "train.trainer")
+          "train.step", "train.trainer", "data.tfrecord",
+          "data.waymo_proto", "data.lidar", "geometry",
+          "geometry.scene_meta", "geometry.segment",
+          "geometry.pseudo_labels", "geometry.triangulate",
+          "scripts.convert_kitti", "scripts.convert_waymo",
+          "scripts.convert_nuscenes", "scripts.segment_pcd",
+          "scripts.triangulate", "scripts.validate_scene")
 
 
 def test_port_imports_no_jax():
