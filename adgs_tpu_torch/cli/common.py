@@ -54,8 +54,10 @@ class ModelConfig:
     capacity: int = 1 << 19
     max_per_tile: int = 4096
     chunk: int = 64
-    # multi-device training knobs of the JAX package, kept so that its
-    # saved configs load (the port trains on one device)
+    # multi-device training: a "tile" mesh of `devices` ranks (tile-row
+    # sharding; primitive_exchange routes the primitives by exchange, else
+    # by all-gather), and a "data" axis of batch_cameras cameras a step;
+    # B * max(devices, 1) ranks in all (cli/train.py starts them)
     devices: int = 0
     primitive_exchange: bool = True
     batch_cameras: int = 1

@@ -33,12 +33,20 @@ def flow_points_project(pts: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
 def flow_loss_sums(img_flow: torch.Tensor, flow_img: torch.Tensor,
                    vis_img: torch.Tensor, K, R, T,
                    img_opacity: Optional[torch.Tensor] = None,
-                   dist: float = 1e-3):
-    """Per-pixel decomposition of flow_loss: (err_sum, vis_count)."""
-    H, W = flow_img.shape[1:]
+                   dist: float = 1e-3,
+                   full_hw: Optional[tuple[int, int]] = None,
+                   pix_mask: Optional[torch.Tensor] = None):
+    """Per-pixel decomposition of flow_loss: (err_sum, vis_count). Every
+    term is pixel-local, so slab-sharded callers psum the two sums and
+    divide once. full_hw: the FULL image (H, W) for the axis
+    normalization and bounds (the slab may be a row slice of it);
+    pix_mask: [h, w] validity of this region's pixels (row padding)."""
+    H, W = full_hw if full_hw is not None else flow_img.shape[1:]
     vis = ((vis_img > 0.5)
            & (flow_img[0] <= W - 1.0) & (flow_img[0] >= 0.0)
            & (flow_img[1] <= H - 1.0) & (flow_img[1] >= 0.0))
+    if pix_mask is not None:
+        vis = vis & (pix_mask > 0)
     count = torch.sum(vis)
     weight = vis.to(img_flow.dtype)
     if img_opacity is not None:

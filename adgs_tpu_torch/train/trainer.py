@@ -1,5 +1,5 @@
 """Host-side training orchestration (counterpart of
-adgs_tpu/train/trainer.py, single device).
+adgs_tpu/train/trainer.py).
 
 Camera-stack sampling, flow-package selection, SH degree warm-up, the
 densify / opacity-reset / KNN-refresh schedule, instance and Gaussian
@@ -16,6 +16,16 @@ KNN refresh's anchors and the split's draws).
 
 The hot loop reads two values from the card each step, as the JAX
 trainer does: the loss and num_rendered (for the overflow guard).
+
+Multi-device training (devices > 1 or batch_cameras > 1) runs one
+trainer per rank of a joined process group (parallel/mesh.py; cli.train
+starts the ranks): every rank holds the replicated model, draws the same
+cameras and the same densify, reset and refresh randoms (same seeds, same
+inputs, bitwise-equal parameters, which a fingerprint check after every
+densify holds), and runs parallel/shard.py's sharded step. Only rank 0
+writes files (metrics, TensorBoard, checkpoints, failure snapshots) and
+evaluates; the others wait at a barrier. The exchange-overflow flag is
+read every step, as the instance-overflow flag is.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..data.frames import flow_package, load_frame
@@ -43,7 +54,7 @@ from .. import render as render_lib
 from . import checkpoint as ckpt_lib
 from . import densify as densify_lib
 from .config import OptimizationConfig
-from .optim import TrainableState, init_adam
+from .optim import TrainableState, init_adam, leaves
 from .step import make_train_step
 
 DEFAULT_ORDER_ARGS = dict(xyz=[None, 5, 0, 6, 0, 0],
@@ -95,10 +106,28 @@ class MetricsLogger:
             self.tb.close()
 
 
+class _NoLogger:
+    """The logger of the ranks that write nothing."""
+
+    tb = None
+
+    def scalars(self, *args, **kw):
+        pass
+
+    image = flush = close = scalars
+
+
 class Trainer:
     """backend: the port's render backend ("cuda", "torch", or None: from
     the device). layout: the compositor's instance layout, "gather" or
-    "rows". device: None means the card."""
+    "rows". device: None means the card (on a mesh: this rank's card).
+
+    devices > 1: a "tile" mesh of that many ranks (tile-row sharding, the
+    primitives sharded 1/D, routed by all-gather or, with
+    primitive_exchange, by the exchange of exchange_capacity rows a pair
+    (0: shard.default_exchange_capacity)); batch_cameras B > 1 adds a
+    "data" axis of B cameras a step. Both need the process group joined
+    with B * max(devices, 1) ranks."""
 
     def __init__(self, scene: SceneData, opt: OptimizationConfig,
                  model_path: str,
@@ -117,12 +146,35 @@ class Trainer:
                  devices: int = 0,
                  batch_cameras: int = 1,
                  device=None,
-                 layout: str = "gather"):
-        if int(devices) > 1 or int(batch_cameras) > 1:
-            raise NotImplementedError(
-                "multi-device training (devices > 1, batch_cameras > 1) is "
-                "not ported yet: ROADMAP.md A5")
-        self.device = resolve_device(device)
+                 layout: str = "gather",
+                 primitive_exchange: bool = False,
+                 exchange_capacity: int = 0):
+        self.devices = int(devices)
+        self.primitive_exchange = primitive_exchange
+        self.exchange_capacity = int(exchange_capacity)
+        self.batch_cameras = max(int(batch_cameras), 1)
+        self.mesh = None
+        self.tile_d = max(self.devices, 1)
+        if self.devices > 1 or self.batch_cameras > 1:
+            from ..parallel.mesh import make_mesh
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "multi-device training runs one process per device: "
+                    "join the process group first (parallel.mesh."
+                    "initialize_multihost; cli.train starts the ranks)")
+            if capacity_quantum % self.tile_d:
+                raise ValueError(
+                    f"capacity_quantum {capacity_quantum} must divide by "
+                    f"devices {self.tile_d} (1/D primitive sharding)")
+            shape = {"data": self.batch_cameras} if self.batch_cameras > 1 \
+                else {}
+            shape["tile"] = self.tile_d
+            self.mesh = make_mesh(shape, device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        self.replica_checks = 0
         self.scene = scene
         self.opt = opt
         self.model_path = model_path
@@ -159,7 +211,8 @@ class Trainer:
                              or (opt.lambda_sigma > 0.0
                                  and opt.lambda_sigma_reg > 0.0))
         self.cameras_extent = max(scene.cameras_extent, opt.min_camera_extent)
-        self.logger = MetricsLogger(model_path)
+        self.logger = MetricsLogger(model_path) if self.is_main \
+            else _NoLogger()
         self._step_fn = None
         self._ray_cache: dict = {}
         self.active_sh_degree = 0
@@ -186,25 +239,96 @@ class Trainer:
         return self._ray_cache[cam_id]
 
     def _frames_for_step(self, picks: list, opt):
-        """The step's (camera, batch, rays) for picks = [frame index]. When
-        flow supervision is on and the frame has flow packages, one is
-        drawn with `rng`."""
+        """The step's (camera, batch, rays) for picks = [frame index, ...],
+        stacked when batch_cameras > 1. When flow supervision is on and a
+        frame has flow packages, one is drawn with `rng`; in a stack the
+        frames without one get a zero package gated off by flow_valid, so
+        that the stack has one structure."""
         frames = self.scene.train_frames
-        (i,) = picks
-        cam, batch, flow_list = self._get_frame("train", i)
-        if opt.lambda_flow > 0.0 and flow_list:
-            raw = flow_list[self.rng.randrange(len(flow_list))]
-            batch = batch._replace(
-                flow=flow_package(raw, device=self.device),
-                flow_valid=torch.tensor(True, device=self.device))
-        return cam, batch, self._rays_for(cam, frames[i].cam_id)
+        loaded = [self._get_frame("train", i) for i in picks]
+        want_flow = opt.lambda_flow > 0.0 and any(fl for _, _, fl in loaded)
+        cams, batches, rays = [], [], []
+        for i, (cam, batch, flow_list) in zip(picks, loaded):
+            if want_flow and flow_list:
+                raw = flow_list[self.rng.randrange(len(flow_list))]
+                batch = batch._replace(
+                    flow=flow_package(raw, device=self.device),
+                    flow_valid=torch.tensor(True, device=self.device))
+            elif want_flow:
+                from ..ops.flow import FlowPackage
+                H, W = batch.depth.shape
+                z = torch.zeros
+                batch = batch._replace(
+                    flow=FlowPackage(
+                        time=cam.time.clone(),
+                        K=torch.eye(3, device=self.device),
+                        R=torch.eye(3, device=self.device),
+                        T=z(3, device=self.device),
+                        flow=z((2, H, W), device=self.device),
+                        vis=z((H, W), device=self.device)),
+                    flow_valid=torch.tensor(False, device=self.device))
+            cams.append(cam)
+            batches.append(batch)
+            rays.append(self._rays_for(cam, frames[i].cam_id))
+        if self.batch_cameras == 1:
+            return cams[0], batches[0], rays[0]
+        from ..parallel.data_parallel import stack_batches, stack_cameras
+        return stack_cameras(cams), stack_batches(batches), torch.stack(rays)
 
     def _build_step(self):
+        if self.mesh is not None:
+            from ..parallel.shard import (default_exchange_capacity,
+                                          make_sharded_train_step)
+            if not self.exchange_capacity:
+                self.exchange_capacity = default_exchange_capacity(
+                    self.params.capacity // self.tile_d, self.tile_d)
+            self._step_fn = make_sharded_train_step(
+                self.config, self.opt, self.scene.frame_gap,
+                self.scene.scene_extent, self.scene.cameras_extent,
+                mesh=self.mesh, backend=self.backend,
+                capacity=self.capacity, inv_depth=self.inv_depth,
+                layout=self.layout,
+                primitive_exchange=self.primitive_exchange,
+                exchange_capacity=self.exchange_capacity,
+                data_axis="data" if self.batch_cameras > 1 else None)
+            return
         self._step_fn = make_train_step(
             self.config, self.opt, self.scene.frame_gap,
             self.scene.scene_extent, self.scene.cameras_extent,
             backend=self.backend, capacity=self.capacity,
             inv_depth=self.inv_depth, layout=self.layout)
+
+    @property
+    def render_capacity(self) -> int:
+        """The instance capacity of a full-frame render on one device: on
+        a mesh, `capacity` bounds one slab's instances, and the slabs'
+        counts add up to the frame's."""
+        return self.capacity * self.tile_d
+
+    def _say(self, msg: str, **kw) -> None:
+        if self.is_main:
+            print(msg, **kw)
+
+    def _sync(self) -> None:
+        """The ranks that write nothing wait here for rank 0."""
+        if self.mesh is not None:
+            dist.barrier()
+
+    def check_replicas(self, what: str) -> None:
+        """Every rank must hold bitwise the same model: an integer
+        fingerprint of every parameter, moment and state tensor, compared
+        across the ranks. Raises where they differ."""
+        if self.mesh is None:
+            return
+        from ..parallel.mesh import check_replicas
+        tensors = (leaves(TrainableState(self.params, self.env))
+                   + leaves(self.opt_state.m) + leaves(self.opt_state.v)
+                   + [getattr(self.state, f.name)
+                      for f in dataclasses.fields(self.state)])
+        check_replicas(tensors, what)
+        self.replica_checks += 1
+        self._say(f"[replicas] {what}: {self.mesh.size} ranks' "
+                  f"{len(tensors)} tensors bitwise equal")
 
     def refresh_near_idx(self):
         """set_obj_near_idx: random alive anchors and their K nearest
@@ -251,6 +375,16 @@ class Trainer:
             self.state, obj_near_idx=torch.as_tensor(out, device=self.device),
             obj_near_valid=torch.as_tensor(valid, device=self.device))
 
+    def _grow_exchange_capacity(self):
+        """The primitive exchange dropped rows (shard.py
+        exchange_overflow): grow the per-pair capacity 1.5x, to a multiple
+        of 8, and rebuild the sharded step."""
+        self.exchange_capacity = -(-int(self.exchange_capacity * 1.5)
+                                   // 8) * 8
+        self._say(f"[autotune] exchange_capacity -> {self.exchange_capacity}",
+                  file=sys.stderr)
+        self._build_step()
+
     def _maybe_grow_instance_capacity(self, num_rendered: int):
         """Grow the instance capacity to num_rendered / 0.92 (rounded up to
         4096) once num_rendered passes 0.97 of it; the per-step overflow
@@ -268,7 +402,7 @@ class Trainer:
         self._build_step()
         for k in [k for k in self._frame_cache if k[0] == "eval"]:
             del self._frame_cache[k]
-        print(f"[capacity] instance capacity grew to {new_cap}")
+        self._say(f"[capacity] instance capacity grew to {new_cap}")
 
     def _maybe_grow_capacity(self):
         """Double a Gaussian block that is more than 90% alive."""
@@ -283,7 +417,8 @@ class Trainer:
                 TrainableState(self.params, self.env), self.opt_state,
                 self.state, Ns + grow_s, No + grow_o)
             self.params, self.env = t.gaussians, t.env
-            print(f"[capacity] grew to scene={Ns + grow_s} obj={No + grow_o}")
+            self._say(f"[capacity] grew to scene={Ns + grow_s} "
+                      f"obj={No + grow_o}")
 
     def _dump_failure_snapshot(self, it: int, fidx: int) -> str:
         """Repro capsule on a step failure: the full train state and the
@@ -291,6 +426,8 @@ class Trainer:
         the step (e.g. with backend "torch" to tell a kernel fault from a
         model fault)."""
         path = os.path.join(self.model_path, f"snapshot_fail_{it}.npz")
+        if not self.is_main:
+            return f"<rank {self.mesh.rank} writes no snapshot>"
         try:
             ckpt_lib.save_state(
                 path, TrainableState(self.params, self.env),
@@ -318,7 +455,8 @@ class Trainer:
 
         self.timer = timer = StepTimer()
         # --profile: trace a short steady-state window (steps 20-39)
-        prof_window = range(20, 40) if self.profile_dir else range(0)
+        prof_window = (range(20, 40) if self.profile_dir and self.is_main
+                       else range(0))
         prof_ctx = None
 
         stack: list = []
@@ -336,13 +474,16 @@ class Trainer:
             if it % 1000 == 0 and self.active_sh_degree < self.config.sh_degree:
                 self.active_sh_degree += 1
 
-            if not stack:
-                stack = list(range(len(self.scene.train_frames)))
-                if opt.data_sample == "stack":
-                    self.rng.shuffle(stack)
-            fidx = stack.pop(0 if opt.data_sample == "order"
-                             else self.rng.randrange(len(stack)))
-            cam, batch, rays = self._frames_for_step([fidx], opt)
+            picks = []
+            for _ in range(self.batch_cameras):
+                if not stack:
+                    stack = list(range(len(self.scene.train_frames)))
+                    if opt.data_sample == "stack":
+                        self.rng.shuffle(stack)
+                picks.append(stack.pop(0 if opt.data_sample == "order"
+                                       else self.rng.randrange(len(stack))))
+            fidx = picks[0]
+            cam, batch, rays = self._frames_for_step(picks, opt)
 
             try:
                 with timer:
@@ -367,10 +508,15 @@ class Trainer:
             if (num_rendered > self.capacity
                     or it % opt.densification_interval == 0):
                 self._maybe_grow_instance_capacity(num_rendered)
+            # per-step exchange-overflow guard: that step dropped rows
+            # routed to an overloaded slab, so grow now (the JAX trainer
+            # checks only every densification interval)
+            if self.mesh is not None and bool(logs["exchange_overflow"]):
+                self._grow_exchange_capacity()
             if it % 200 == 0:
                 n = int(self.state.num_scene) + int(self.state.num_obj)
-                print(f"[{it}/{iterations}] loss={ema:.5f} pts={n} "
-                      f"({(time.time() - t_start):.0f}s)")
+                self._say(f"[{it}/{iterations}] loss={ema:.5f} pts={n} "
+                          f"({(time.time() - t_start):.0f}s)")
 
             # densification (train.py:148-160)
             if it < opt.densify_until_iter:
@@ -389,6 +535,7 @@ class Trainer:
                     self.params, self.env = t.gaussians, t.env
                     self._maybe_grow_capacity()
                     self.refresh_near_idx()
+                    self.check_replicas(f"densify at {it}")
                 elif (self.use_near_idx
                       and it % opt.near_idx_reset_interval == 0):
                     self.refresh_near_idx()
@@ -418,13 +565,21 @@ class Trainer:
             self._frame_cache[key] = render_lib.make_staged_render_fn(
                 self.config, active_sh_degree=self.active_sh_degree,
                 inv_depth=self.inv_depth, backend=self.backend,
-                capacity=self.capacity, layout=self.layout)
+                capacity=self.render_capacity, layout=self.layout)
         return self._frame_cache[key]
 
     def evaluate(self, it: int, max_frames: int = 10, max_panels: int = 3):
         """PSNR / SSIM (and LPIPS(VGG) where its weights exist) over the
         test split and 5 fixed train cameras, and image panels of the
-        first frames to TensorBoard."""
+        first frames to TensorBoard. On a mesh, rank 0 evaluates (on its
+        own device) and the other ranks wait."""
+        if not self.is_main:
+            self._sync()
+            return
+        self._evaluate(it, max_frames, max_panels)
+        self._sync()
+
+    def _evaluate(self, it: int, max_frames: int, max_panels: int):
         from ..ops.image import ssim as ssim_fn
         from ..ops.lpips import lpips_fn
         render_fn = self.eval_render_fn()
@@ -490,9 +645,12 @@ class Trainer:
         self.params, self.env = tr.gaussians, tr.env
         self.iteration = it
         self.active_sh_degree = min(it // 1000, self.config.sh_degree)
-        print(f"[resume] restored iteration {it}")
+        self._say(f"[resume] restored iteration {it}")
 
     def save(self, it: int):
+        if not self.is_main:
+            self._sync()
+            return
         base = os.path.join(self.model_path, "point_cloud",
                             f"iteration_{it}")
         ckpt_lib.save_ply(os.path.join(base, "point_cloud.ply"),
@@ -503,6 +661,7 @@ class Trainer:
             TrainableState(self.params, self.env), self.opt_state,
             self.state, it)
         print(f"[ITER {it}] saved to {base}")
+        self._sync()
 
     def close(self):
         self.logger.close()

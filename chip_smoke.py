@@ -140,7 +140,29 @@ Phases (any failure exits non-zero before the last line is printed):
      point tagged with its own box's id; 90% of the triangulated static
      points within 0.1 m of the street; every Waymo point within 0.01 m of
      it; every cli.train loss finite; seconds per stage, counts.
-Phases 3-14 are `run(device, seed)`, which a CPU rehearsal can call at a
+15. multi-device (adgs_tpu_torch.parallel): ranks started by
+     parallel/launch.py, over gloo on one card (NCCL refuses two ranks on
+     one GPU), this process the single-device reference. The full-width
+     step model of phases 3-8 with tile D = 2: slab mode with the
+     primitive exchange on and off, each held to make_train_step on the
+     same inputs at tests/test_parallel.py's bars (every log term rtol
+     1e-4, gradients rtol 5e-3 atol 1e-6, updated scene_xyz rtol 1e-3
+     atol 1e-7, denom bitwise), every training kernel launched on every
+     rank, both ranks' updates bitwise equal; gathered mode's logs within
+     rtol 2e-5 atol 1e-7 of slab mode's; each rank's ms/step and peak
+     memory (ranks sharing one card: not a scaling figure); the camera
+     batch {"data": 2, "tile": 1} at the same width (loss the mean of two
+     single-device steps at rtol 1e-4, denom their sum at atol 1e-5); the
+     2-D mesh {"data": 2, "tile": 2} on four ranks at the gate's shapes
+     (gradients against the singles' mean); cli.train --devices 2 on a
+     1242x375 KITTI-format scene for 20 iterations (densify, opacity
+     reset, KNN refresh, exchange- and instance-capacity growths forced;
+     every loss finite and equal across ranks, a bitwise replica check
+     after every densify, files by rank 0 alone, cli.render of its
+     checkpoint within 1/255 of rank 0's in-memory render); the D = 2
+     step over NCCL where there are two cards. The kernels line's
+     multi_launches are the D = 2 slab step's launches on rank 0.
+Phases 3-15 are `run(device, seed)`, which a CPU rehearsal can call at a
 small size with host-side stand-ins for the CUDA timers.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -3320,6 +3342,660 @@ def box_distance(world, p, t):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. multi-device: the port's sharded training (adgs_tpu_torch.parallel)
+# in ranks spawned by parallel/launch.py, over gloo on the one card (NCCL
+# refuses two ranks on one GPU) and over NCCL where there are two cards;
+# this process stays the single-device reference
+# ---------------------------------------------------------------------------
+MULTI_D = 2                       # tile ranks of the full-width step
+MULTI_TIME_B = 0.25               # the second camera's time (data axis)
+MULTI_TIMED = 1                   # timed slab steps a rank
+MULTI_MESH = dict(n=6000, width=256, height=160, env_res=512)  # the gate's
+MULTI_TRAIN_ITERS = 20
+MULTI_TRAIN_POINTS = (100_000, 300_000)   # scene points, object points
+MULTI_TRAIN_ENV = 2048            # the trainer run's sky resolution
+MULTI_TRAIN_EXCHANGE = 8192       # exchange rows a pair: grown on overflow
+MULTI_TRAIN_CAPACITY = 65536      # a slab's instances: grown on overflow
+MULTI_TIMEOUT = 900               # seconds a spawn may take
+SHARD_GRAD = dict(rtol=5e-3, atol=1e-6)   # tests/test_parallel.py's bars
+
+
+def _to(x, dev):
+    """x (a tensor, or a dataclass / NamedTuple / dict / list of them)
+    on `dev`."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_to(v, dev) for v in x])
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def step_config():
+    from adgs_tpu_torch.models import gaussians as gm
+    return gm.GaussianConfig.from_order_args(KITTI_75, frame_num=FRAME_NUM,
+                                             sh_degree=3, use_time_mask=True)
+
+
+def single_refs(step, start, cams, batch, rays, grads: str):
+    """The single-device step from `start` on each camera: its logs,
+    updated scene_xyz and statistics, on the host, then those of the
+    camera batch (the loss mean, the statistics' sums). grads: "first"
+    keeps the first camera's gradients, "mean" the batch's (the cameras'
+    mean)."""
+    import torch
+    p, e, o, s = start
+    out, gsum = [], None
+    for i, cam in enumerate(cams):
+        lg = step.loss_and_grads(p, e, s, cam, batch, rays)
+        new = step(p, e, o, s, cam, batch, rays, ITERATION)
+        g = [x for _, x in _named_leaves(lg.grads)]
+        if grads == "mean":
+            gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
+        out.append(dict(
+            logs={k: float(v) for k, v in lg.logs.items()},
+            grads=[x.cpu() for x in g] if grads == "first" and i == 0
+            else None,
+            scene_xyz=new[0].scene_xyz.cpu(),
+            denom=new[3].denom.cpu(), max_radii2d=new[3].max_radii2d.cpu(),
+            xyz_grad_accum=new[3].xyz_grad_accum.cpu()))
+        del lg, new, g
+    base = dict(denom=s.denom.cpu(), xyz_grad_accum=s.xyz_grad_accum.cpu(),
+                max_radii2d=s.max_radii2d.cpu())
+    # B cameras a step: B reference iterations' worth of statistics
+    out.append(dict(
+        loss=float(np.mean([r["logs"]["total_loss"] for r in out])),
+        denom=base["denom"] + sum(r["denom"] - base["denom"] for r in out),
+        xyz_grad_accum=base["xyz_grad_accum"] + sum(
+            r["xyz_grad_accum"] - base["xyz_grad_accum"] for r in out),
+        max_radii2d=torch.stack([r["max_radii2d"] for r in out]).amax(0),
+        grads=None if gsum is None else [(x / len(cams)).cpu()
+                                         for x in gsum]))
+    return out
+
+
+def _rank_log(lines, msg):
+    lines.append(msg)
+    print(msg, flush=True)
+
+
+def _close(lines, name, got, want, rtol, atol):
+    """allclose of a rank's tensor against the reference (on the host
+    when it is large), logged; raises where it fails."""
+    import torch
+    want = want.to(got.device)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+    if not ok:
+        _rank_log(lines, f"  {name}: max |diff| {err:.3e} (rtol {rtol:g}, "
+                         f"atol {atol:g}) FAIL")
+        raise AssertionError(f"{name} disagrees with the single-device step")
+    return err
+
+
+def _hold_step(lines, what, lg, new, ref, logs_ref=True):
+    """A sharded step (gradients `lg`, update `new`) held to the
+    single-device reference `ref` at tests/test_parallel.py's bars."""
+    import torch
+    if logs_ref:
+        for k, v in ref["logs"].items():
+            if k == "num_rendered":
+                continue
+            got = float(lg.logs[k])
+            if not np.isclose(got, v, rtol=1e-4, atol=0.0):
+                raise AssertionError(f"{what} {k}: {got} vs {v}")
+    worst = 0.0
+    for (name, g), want in zip(_named_leaves(lg.grads), ref["grads"]):
+        worst = max(worst, _close(lines, f"{what} grad {name}", g, want,
+                                  **SHARD_GRAD))
+    xyz = _close(lines, f"{what} updated scene_xyz", new[0].scene_xyz,
+                 ref["scene_xyz"], 1e-3, 1e-7)
+    if not torch.equal(new[3].denom, ref["denom"].to(new[3].denom.device)):
+        raise AssertionError(f"{what}: denom not bitwise the reference's")
+    _rank_log(lines, f"  {what}: total_loss {float(lg.logs['total_loss']):.6f}"
+                     f" (single {ref['logs']['total_loss']:.6f}), gradients "
+                     f"max |diff| {worst:.3e}, scene_xyz {xyz:.3e}, denom "
+                     "bitwise")
+
+
+def _replicas(new, what):
+    from adgs_tpu_torch.parallel.mesh import check_replicas
+    from adgs_tpu_torch.train.optim import TrainableState, leaves
+    p, e, o, s = new[:4]
+    check_replicas(leaves(TrainableState(p, e)) + leaves(o.m) + leaves(o.v)
+                   + [s.denom, s.xyz_grad_accum, s.max_radii2d], what)
+
+
+class collective_timers:
+    """Wraps the collectives that parallel/ calls to add up the host
+    seconds inside each (the device synchronized before and after), by
+    name; `restore` puts them back."""
+
+    def __init__(self, dev):
+        import torch.distributed as dist
+        from adgs_tpu_torch.parallel import collectives as cc
+        self.seconds = {}
+        self._put = []
+        for owner, name in ((dist, "all_reduce"),
+                            (dist, "all_to_all_single"),
+                            (dist, "batch_isend_irecv"), (dist, "all_gather"),
+                            (cc, "_gather_into"), (cc, "_reduce_scatter")):
+            real = getattr(owner, name)
+            self._put.append((owner, name, real))
+            setattr(owner, name, self._timed(name.strip("_"), real, dev))
+
+    def _timed(self, name, real, dev):
+        def fn(*a, **k):
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = real(*a, **k)
+            if isinstance(res, list):
+                for w in res:
+                    w.wait()
+                res = []
+            _sync(dev)
+            self.seconds[name] = self.seconds.get(name, 0.0) + (
+                time.perf_counter() - t0)
+            return res
+        return fn
+
+    def restore(self):
+        for owner, name, real in self._put:
+            setattr(owner, name, real)
+
+
+def multi_step_rank(path: str, backend: str, device: str = "cuda",
+                    cases: str = "all") -> dict:
+    """A rank of the full-width sharded step (tile D = 2: slab mode with
+    the exchange on and off, gathered mode; then the camera batch on
+    {"data": 2, "tile": 1}), held to the single-device reference that the
+    parent wrote to `path` with the scene. cases "tile": the first only."""
+    import torch
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.parallel.data_parallel import (stack_batches,
+                                                       stack_cameras)
+    from adgs_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from adgs_tpu_torch.parallel.shard import make_sharded_train_step
+    from adgs_tpu_torch.train.config import OptimizationConfig
+    from adgs_tpu_torch.train.optim import TrainableState, init_adam
+
+    initialize_multihost(backend)
+    mesh = make_mesh({"tile": MULTI_D}, device)
+    dev, rank = mesh.device, mesh.rank
+    lines = [f"rank {rank} on {dev} ({backend})"]
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    sc, refs = _to(data["scene"], dev), data["refs"]
+    params, env, state = sc["params"], sc["env"], sc["state"]
+    batch, rays, cams = sc["batch"], sc["rays"], sc["cams"]
+    opt_state = init_adam(TrainableState(params, env))
+    cfg = step_config()
+    cuda = dev.type == "cuda"
+
+    def make(m, loss_mode="slab", exchange=True, data_axis=None):
+        return make_sharded_train_step(
+            cfg, OptimizationConfig(), frame_gap=1.0 / FRAME_NUM,
+            scene_extent=SCENE_EXTENT, cameras_extent=CAMERAS_EXTENT,
+            mesh=m, capacity=sc["capacity"], loss_mode=loss_mode,
+            primitive_exchange=exchange, data_axis=data_axis)
+
+    def run(step, cam, b, r):
+        _kernels.reset_launches()
+        lg = step.loss_and_grads(params, env, state, cam, b, r)
+        new = step.update(params, env, opt_state, state, lg, ITERATION)
+        _sync(dev)
+        return lg, new, dict(_kernels.launches)
+
+    out = dict(rank=rank, device=str(dev), backend=backend)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    slab_logs = {}
+    for exchange in (True, False):
+        what = f"slab, exchange {'on' if exchange else 'off'}"
+        step = make(mesh, exchange=exchange)
+        lg, new, launches = run(step, cams[0], batch, rays)
+        if cuda:
+            missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+            if missing:
+                raise AssertionError(f"{what}: {missing} not launched")
+        _hold_step(lines, what, lg, new, refs[0])
+        _replicas(new, what)
+        _rank_log(lines, f"  {what}: launches {launches}; "
+                         f"{sum(launches.values())} in all; the {MULTI_D} "
+                         "ranks' updates bitwise equal")
+        out[f"launches_{'exchange' if exchange else 'gather'}"] = launches
+        slab_logs[exchange] = {k: float(v) for k, v in lg.logs.items()}
+        del lg, new
+        if cases == "tile":
+            break
+    if cases == "tile":
+        return out
+    glg, gnew, _ = run(make(mesh, "gathered", True), cams[0], batch, rays)
+    for k, v in slab_logs[True].items():
+        if k in ("num_rendered", "exchange_overflow"):
+            continue
+        if not np.isclose(v, float(glg.logs[k]), rtol=2e-5, atol=1e-7):
+            raise AssertionError(f"slab vs gathered {k}: {v} vs "
+                                 f"{float(glg.logs[k])}")
+    _replicas(gnew, "gathered")
+    _rank_log(lines, "  slab vs gathered (exchange on): every log term "
+                     "within rtol 2e-5, atol 1e-7")
+    del glg, gnew
+
+    # ms/step of the slab step with the exchange, each rank by itself,
+    # then the same steps with the seconds inside the collectives counted
+    step = make(mesh)
+    import torch.distributed as dist
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MULTI_TIMED):
+        res = step(params, env, opt_state, state, cams[0], batch, rays,
+                   ITERATION)
+    _sync(dev)
+    out["ms_per_step"] = (time.perf_counter() - t0) / MULTI_TIMED * 1e3
+    out["loss_timed"] = float(res[4]["total_loss"])
+    del res
+    spent = collective_timers(dev)
+    try:
+        for _ in range(MULTI_TIMED):
+            step(params, env, opt_state, state, cams[0], batch, rays,
+                 ITERATION)
+        _sync(dev)
+    finally:
+        spent.restore()
+    out["collective_ms"] = {k: v / MULTI_TIMED * 1e3
+                            for k, v in spent.seconds.items()}
+    _rank_log(lines, f"  collectives a step (host ms, synchronized): "
+                     + json.dumps({k: round(v, 3) for k, v in
+                                   out["collective_ms"].items()}))
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # the camera batch: {"data": 2, "tile": 1}, a camera a rank
+    dmesh = make_mesh({"data": 2, "tile": 1}, device)
+    stacked = (stack_cameras(cams), stack_batches([batch, batch]),
+               torch.stack([rays, rays]))
+    lg, new, launches = run(make(dmesh, data_axis="data"), *stacked)
+    ref = refs[-1]
+    loss = float(lg.logs["total_loss"])
+    if not np.isclose(loss, ref["loss"], rtol=1e-4, atol=0.0):
+        raise AssertionError(f"camera batch loss {loss} vs the mean of two "
+                             f"single-device steps {ref['loss']}")
+    den = _close(lines, "camera batch denom", new[3].denom, ref["denom"],
+                 0.0, 1e-5)
+    _close(lines, "camera batch max_radii2d", new[3].max_radii2d,
+           ref["max_radii2d"], 0.0, 1e-4)
+    acc = _close(lines, "camera batch xyz_grad_accum",
+                 new[3].xyz_grad_accum, ref["xyz_grad_accum"], 2e-3, 1e-6)
+    _replicas(new, "camera batch")
+    _rank_log(lines, f"  camera batch {{data: 2, tile: 1}}: loss {loss:.6f} "
+                     f"(mean of singles {ref['loss']:.6f}), denom sum "
+                     f"{den:.1e}, xyz_grad_accum {acc:.3e}; launches "
+                     f"{launches}; updates bitwise equal")
+    out["launches_batch"] = launches
+    out["lines"] = lines
+    return out
+
+
+def multi_mesh_rank(path: str, backend: str, device: str = "cuda") -> dict:
+    """A rank of the 2-D mesh {"data": 2, "tile": 2} at the gate's shapes,
+    held to the mean of two single-device steps."""
+    import torch
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.parallel.data_parallel import (stack_batches,
+                                                       stack_cameras)
+    from adgs_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from adgs_tpu_torch.parallel.shard import make_sharded_train_step
+    from adgs_tpu_torch.train.config import OptimizationConfig
+    from adgs_tpu_torch.train.optim import TrainableState, init_adam
+
+    initialize_multihost(backend)
+    mesh = make_mesh({"data": 2, "tile": 2}, device)
+    dev = mesh.device
+    lines = [f"rank {mesh.rank} on {dev} ({backend}), coords {mesh.coords}"]
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    sc, ref = _to(data["scene"], dev), data["refs"][-1]
+    params, env, state = sc["params"], sc["env"], sc["state"]
+    step = make_sharded_train_step(
+        step_config(), OptimizationConfig(), frame_gap=1.0 / FRAME_NUM,
+        scene_extent=SCENE_EXTENT, cameras_extent=CAMERAS_EXTENT, mesh=mesh,
+        capacity=sc["capacity"], primitive_exchange=True, data_axis="data")
+    opt_state = init_adam(TrainableState(params, env))
+    _kernels.reset_launches()
+    args = (stack_cameras(sc["cams"]),
+            stack_batches([sc["batch"], sc["batch"]]),
+            torch.stack([sc["rays"], sc["rays"]]))
+    lg = step.loss_and_grads(params, env, state, *args)
+    new = step.update(params, env, opt_state, state, lg, ITERATION)
+    _sync(dev)
+    launches = dict(_kernels.launches)
+    if dev.type == "cuda":
+        missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"2-D mesh: {missing} not launched")
+    loss = float(lg.logs["total_loss"])
+    if not np.isclose(loss, ref["loss"], rtol=1e-4, atol=0.0):
+        raise AssertionError(f"2-D mesh loss {loss} vs {ref['loss']}")
+    worst = 0.0
+    for (name, g), want in zip(_named_leaves(lg.grads), ref["grads"]):
+        worst = max(worst, _close(lines, f"2-D mesh grad {name}", g, want,
+                                  **SHARD_GRAD))
+    den = _close(lines, "2-D mesh denom", new[3].denom, ref["denom"], 0.0,
+                 1e-5)
+    _replicas(new, "2-D mesh")
+    _rank_log(lines, f"  2-D mesh: loss {loss:.6f} (mean of singles "
+                     f"{ref['loss']:.6f}), gradients max |diff| {worst:.3e} "
+                     f"against the singles' mean, denom sum {den:.1e}; "
+                     f"launches {launches}; the 4 ranks' updates bitwise "
+                     "equal")
+    return dict(rank=mesh.rank, lines=lines, launches=launches)
+
+
+def multi_trainer_rank(argv: list) -> dict:
+    """A rank of cli.train --devices 2 under this launcher (its ranks join
+    the group from WORLD_SIZE, as under torchrun): every step's loss, the
+    densify, reset, refresh and growth events, the replica checks; rank 0
+    also renders test frame 0 in memory at full SH degree."""
+    import torch
+    from adgs_tpu_torch.cli import render as cli_render
+    from adgs_tpu_torch.cli import train as cli_train
+    from adgs_tpu_torch.parallel import shard
+    from adgs_tpu_torch.render import make_staged_render_fn
+    from adgs_tpu_torch.train import densify as densify_lib
+    from adgs_tpu_torch.train import trainer as trainer_mod
+
+    ev = dict(densify=0, reset=0, refresh=0, exchange=[], instance=[],
+              losses=[])
+    real_make = shard.make_sharded_train_step
+
+    def make_step(*a, **k):
+        step = real_make(*a, **k)
+
+        def counted(*sa, **sk):
+            res = step(*sa, **sk)
+            ev["losses"].append(float(res[4]["total_loss"]))
+            return res
+        return counted
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            ev[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    T = trainer_mod.Trainer
+    real_ex, real_inst = T._grow_exchange_capacity, \
+        T._maybe_grow_instance_capacity
+    real_refresh = T.refresh_near_idx
+
+    def grow_ex(self):
+        before = self.exchange_capacity
+        real_ex(self)
+        ev["exchange"].append((self.iteration, before,
+                               self.exchange_capacity))
+
+    def grow_inst(self, nr):
+        before = self.capacity
+        real_inst(self, nr)
+        if self.capacity != before:
+            ev["instance"].append((self.iteration, before, self.capacity))
+
+    def refresh(self):
+        ev["refresh"] += 1
+        real_refresh(self)
+
+    class QuietLogger(trainer_mod.MetricsLogger):
+        # TensorBoard's PNG panels cost ~10 s an evaluation at 1242x375
+        def __init__(self, model_path):
+            super().__init__(model_path, use_tensorboard=False)
+
+    shard.make_sharded_train_step = make_step
+    densify_lib.densify_and_prune = counting(
+        "densify", densify_lib.densify_and_prune)
+    densify_lib.reset_opacity = counting("reset", densify_lib.reset_opacity)
+    T._grow_exchange_capacity = grow_ex
+    T._maybe_grow_instance_capacity = grow_inst
+    T.refresh_near_idx = refresh
+    trainer_mod.MetricsLogger = QuietLogger
+    t0 = time.perf_counter()
+    tr = cli_train.main(argv)
+    seconds = time.perf_counter() - t0
+    out = dict(ev, rank=tr.mesh.rank, main=tr.is_main,
+               logger=type(tr.logger).__name__,
+               replica_checks=tr.replica_checks, iteration=tr.iteration,
+               seconds=seconds, step_ms=tr.timer.ema_s * 1e3,
+               alive=int(tr.state.num_scene) + int(tr.state.num_obj),
+               capacity=tr.capacity, render_capacity=tr.render_capacity)
+    if tr.device.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(tr.device) / 1e9
+    if tr.is_main:
+        cfg = tr.config
+        fn = make_staged_render_fn(cfg, active_sh_degree=cfg.sh_degree,
+                                   inv_depth=tr.inv_depth,
+                                   capacity=tr.render_capacity,
+                                   layout=tr.layout)
+        cam, _, _ = tr._get_frame("test", 0)
+        rays = tr._rays_for(cam, tr.scene.test_frames[0].cam_id)
+        img = fn(cam, tr.params, tr.state, tr.env, rays)
+        out["render"] = cli_render._to_uint8(torch.clamp(img["render"], 0,
+                                                         1))
+        out["num_rendered"] = int(img["num_rendered"])
+    return out
+
+
+def _print_rank_logs(workdir, world):
+    import os
+    for r in range(world):
+        path = os.path.join(workdir, f"rank{r}.log")
+        if os.path.exists(path):
+            for line in open(path).read().splitlines():
+                if line.startswith(("rank ", "  ")):
+                    log(f"#   [rank {r}] {line.strip()}")
+
+
+def multi_phase(seed, dev, card, cfg, params, env, rays, cams, batch,
+                train_state, capacity) -> dict:
+    """Phase 15 (see the module docstring). Returns a summary with the
+    D = 2 step's launches on rank 0."""
+    import gc
+    import os
+    import tempfile
+    import torch
+    from PIL import Image
+    from adgs_tpu_torch.cli import render as cli_render
+    from adgs_tpu_torch.parallel.launch import call_ranks
+    from adgs_tpu_torch.train.optim import TrainableState, init_adam
+
+    t_phase = time.perf_counter()
+    shared = f"{card}; ranks sharing one card over gloo, not a scaling figure"
+    summary = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="adgs_multi_") as tmp:
+        # the full-width step model of phases 3-8, and its single-device
+        # references on two cameras
+        t0 = time.perf_counter()
+        step = make_step(cfg, capacity)
+        start = (params, env, init_adam(TrainableState(params, env)),
+                 train_state)
+        two = [cams[0].at_time(TRAIN_TIME), cams[1].at_time(MULTI_TIME_B)]
+        refs = single_refs(step, start, two, batch, rays, grads="first")
+        path = os.path.join(tmp, "step.pt")
+        torch.save(dict(scene=_to(dict(
+            params=params, env=env, state=train_state, batch=batch,
+            rays=rays, cams=two, capacity=capacity), "cpu"), refs=refs),
+            path)
+        del refs, start, step
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        summary["reference s"] = time.perf_counter() - t0
+        log(f"# multi-device ({shared}): the references and the scene "
+            f"file in {summary['reference s']:.1f} s")
+
+        t0 = time.perf_counter()
+        wd = os.path.join(tmp, "step")
+        res = call_ranks("chip_smoke:multi_step_rank", MULTI_D,
+                         dict(path=path, backend="gloo", device=device),
+                         timeout=MULTI_TIMEOUT, workdir=wd)
+        summary["tile and batch s"] = time.perf_counter() - t0
+        _print_rank_logs(wd, MULTI_D)
+        summary["launches"] = res[0]["launches_exchange"]
+        summary["ms_per_step"] = [r["ms_per_step"] for r in res]
+        summary["collective_ms"] = [r["collective_ms"] for r in res]
+        summary["peak_gb"] = [r.get("peak_gb") for r in res]
+        if len({r["loss_timed"] for r in res}) != 1:
+            raise AssertionError("the ranks' timed losses differ")
+        log(f"# multi-device ({shared}): tile D = {MULTI_D} slab step at "
+            f"{WIDTH}x{HEIGHT}, {params.capacity} Gaussian slots, the 3x"
+            f"{ENV_RES}^2 sky: ms/step "
+            f"per rank {[round(x, 3) for x in summary['ms_per_step']]}, "
+            "of which in the collectives (host ms, synchronized) "
+            f"{[round(sum(c.values()), 3) for c in summary['collective_ms']]}"
+            f", peak GB per rank {summary['peak_gb']}; spawn, checks and "
+            f"times {summary['tile and batch s']:.1f} s")
+
+        if torch.cuda.device_count() >= 2 and device == "cuda":
+            t0 = time.perf_counter()
+            wd = os.path.join(tmp, "nccl")
+            call_ranks("chip_smoke:multi_step_rank", MULTI_D,
+                       dict(path=path, backend="nccl", device=device,
+                            cases="tile"), timeout=MULTI_TIMEOUT, workdir=wd)
+            _print_rank_logs(wd, MULTI_D)
+            log(f"# multi-device: the D = {MULTI_D} step over NCCL on two "
+                f"cards held to the reference in "
+                f"{time.perf_counter() - t0:.1f} s")
+        else:
+            log(f"# multi-device: the NCCL path was not run "
+                f"({torch.cuda.device_count()} card)")
+        os.remove(path)
+
+        # the 2-D mesh at the gate's shapes, four ranks
+        t0 = time.perf_counter()
+        m = MULTI_MESH
+        mcfg, mp, mstate, menv, mrays, mcams = build_scene(
+            dev, seed + 5, m["n"], m["width"], m["height"], m["env_res"])
+        mbatch, mstate = train_inputs(dev, seed + 5, mp, mstate, m["width"],
+                                      m["height"])
+        mtwo = [mcams[0].at_time(TRAIN_TIME), mcams[1].at_time(MULTI_TIME_B)]
+        mcap, _nr = size_capacity(mcfg, mp, mstate, mtwo)
+        mstep = make_step(mcfg, mcap)
+        mrefs = single_refs(mstep, (mp, menv, init_adam(TrainableState(
+            mp, menv)), mstate), mtwo, mbatch, mrays, grads="mean")
+        path = os.path.join(tmp, "mesh.pt")
+        torch.save(dict(scene=_to(dict(
+            params=mp, env=menv, state=mstate, batch=mbatch, rays=mrays,
+            cams=mtwo, capacity=mcap), "cpu"), refs=mrefs), path)
+        del mrefs, mstep, mp, menv, mstate, mbatch
+        wd = os.path.join(tmp, "mesh")
+        mres = call_ranks("chip_smoke:multi_mesh_rank", 4,
+                          dict(path=path, backend="gloo", device=device),
+                          timeout=MULTI_TIMEOUT, workdir=wd)
+        _print_rank_logs(wd, 4)
+        summary["mesh s"] = time.perf_counter() - t0
+        log(f"# multi-device ({shared}): 2-D mesh {{data: 2, tile: 2}} at "
+            f"{m['width']}x{m['height']}, {m['n']} Gaussians, 3x"
+            f"{m['env_res']}^2 sky: held to the singles in "
+            f"{summary['mesh s']:.1f} s; rank 0 launches "
+            f"{mres[0]['launches']}")
+
+        # the trainer: cli.train --devices 2 on a KITTI-format scene
+        t0 = time.perf_counter()
+        scene = os.path.join(tmp, "scene")
+        model = os.path.join(tmp, "model")
+        pts, obj = train_scene_points(seed, cams, *MULTI_TRAIN_POINTS)
+        write_cli_scene(scene, seed, camera_poses(), WIDTH, HEIGHT, pts, obj)
+        del pts, obj
+        n = str(MULTI_TRAIN_ITERS)
+        argv = (["-s", scene, "-m", model, "--seed", str(seed), "--device",
+                 device, "-c", os.path.join(here, "configs/kitti-75.py"),
+                 "--sh_degree", "3", "--env_resolution",
+                 str(MULTI_TRAIN_ENV), "--iterations", n,
+                 "--densification_interval", "5", "--densify_from_iter", "0",
+                 "--opacity_reset_interval", "10",
+                 "--near_idx_reset_interval", "5", "--test_iterations", n,
+                 "--save_iterations", n, "--devices", str(MULTI_D),
+                 "--capacity", str(MULTI_TRAIN_CAPACITY),
+                 "--exchange_capacity", str(MULTI_TRAIN_EXCHANGE)]
+                + TRAIN_GRAD_ARGS)
+        log("# multi-device trainer: cli.train " + " ".join(argv[8:]))
+        wd = os.path.join(tmp, "train")
+        tres = call_ranks("chip_smoke:multi_trainer_rank", MULTI_D,
+                          dict(argv=argv), timeout=MULTI_TIMEOUT,
+                          workdir=wd)
+        summary["trainer s"] = time.perf_counter() - t0
+        r0 = tres[0]
+        for r in tres:
+            if (len(r["losses"]) != MULTI_TRAIN_ITERS
+                    or not np.isfinite(r["losses"]).all()):
+                raise AssertionError(f"rank {r['rank']} losses {r['losses']}")
+            if r["losses"] != r0["losses"]:
+                raise AssertionError("the ranks' losses differ")
+            if not (r["densify"] and r["reset"] and r["refresh"]
+                    and r["exchange"] and r["instance"]):
+                raise AssertionError(f"rank {r['rank']}: an event did not "
+                                     f"fire: {json.dumps({k: r[k] for k in ('densify', 'reset', 'refresh', 'exchange', 'instance')})}")
+            if r["replica_checks"] != r["densify"]:
+                raise AssertionError("a densify went without its replica "
+                                     "check")
+        if [r["main"] for r in tres] != [True] + [False] * (MULTI_D - 1) or \
+                tres[1]["logger"] != "_NoLogger":
+            raise AssertionError("a rank other than 0 had a file logger")
+        recs = [json.loads(ln) for ln in open(os.path.join(
+            model, "metrics.jsonl"))]
+        steps = [x["step"] for x in recs if "total_loss" in x]
+        if steps != list(range(10, MULTI_TRAIN_ITERS + 1, 10)):
+            raise AssertionError(f"metrics.jsonl's training lines {steps}: "
+                                 "not rank 0's alone")
+        its = sorted(os.listdir(os.path.join(model, "point_cloud")))
+        snaps = [f for f in os.listdir(model) if f.startswith("snapshot")]
+        if its != [f"iteration_{MULTI_TRAIN_ITERS}"] or snaps:
+            raise AssertionError(f"checkpoints {its}, snapshots {snaps}")
+        cli_render.main(["-m", model, "--skip_train", "--device", device])
+        png = np.asarray(Image.open(os.path.join(
+            model, "test", f"ours_{MULTI_TRAIN_ITERS}", "renders",
+            "00000.png")))
+        diff = np.abs(png.astype(np.int32) - r0["render"].astype(np.int32))
+        if png.shape != r0["render"].shape or diff.max() > 1:
+            raise AssertionError("cli.render of rank 0's checkpoint differs "
+                                 "from its in-memory render by more than "
+                                 "1/255")
+        summary["trainer"] = {k: r0[k] for k in (
+            "densify", "reset", "refresh", "exchange", "instance",
+            "replica_checks", "alive", "capacity", "render_capacity",
+            "seconds", "step_ms")}
+        summary["trainer"]["losses"] = [round(x, 6) for x in r0["losses"]]
+        summary["trainer"]["peak_gb"] = [r.get("peak_gb") for r in tres]
+        log(f"# multi-device trainer ({shared}): " + json.dumps(
+            summary["trainer"]))
+        log(f"# multi-device trainer: every loss finite and equal on both "
+            f"ranks, {r0['replica_checks']} densifies each followed by a "
+            "bitwise replica check, files by rank 0 alone, test frame 0 by "
+            f"cli.render within {int(diff.max())}/255 of rank 0's memory; "
+            f"{summary['trainer s']:.1f} s")
+    summary["phase s"] = time.perf_counter() - t_phase
+    log(f"# multi-device phase: {summary['phase s']:.1f} s")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3560,6 +4236,14 @@ def run(dev, seed: int, card: str = "no card") -> list:
 
     # 14. scene preparation, then cli.train on the scene it wrote
     prep_phase(seed, dev, card)
+
+    # 15. multi-device: ranks over torch.distributed
+    multi = multi_phase(seed, dev, card, cfg, params, env, rays, cams, batch,
+                        train_state, capacity)
+    for entry in kernels:
+        entry["multi_launches"] = multi["launches"].get(entry["name"], 0)
+    log("# multi_launches (the D = 2 slab step, rank 0): " + json.dumps(
+        {k: v for k, v in multi["launches"].items() if v}))
     return kernels
 
 

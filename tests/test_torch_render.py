@@ -118,7 +118,11 @@ NEEDED = ("cli.common", "cli.render", "cli.train", "data.colmap",
           "geometry.pseudo_labels", "geometry.triangulate",
           "scripts.convert_kitti", "scripts.convert_waymo",
           "scripts.convert_nuscenes", "scripts.segment_pcd",
-          "scripts.triangulate", "scripts.validate_scene")
+          "scripts.triangulate", "scripts.validate_scene",
+          "scripts.generate_depth", "scripts.generate_flow",
+          "scripts.generate_semantic", "scripts.bench_scaling", "parallel",
+          "parallel.mesh", "parallel.collectives", "parallel.launch",
+          "parallel.shard", "parallel.data_parallel")
 
 
 def test_port_imports_no_jax():

@@ -12,7 +12,8 @@ profiling on the CPU:
     run, and cli.render's PSNR of the checkpoint equals the trainer's;
   - the overflow guard (as tests/test_data_cli.py::TestCapacityAutotune)
     and the failure snapshot (::TestFailureSnapshot);
-  - multi-device arguments refused, profiling.trace and StepTimer."""
+  - multi-device arguments refused without a process group,
+    profiling.trace and StepTimer."""
 
 import dataclasses
 import json
@@ -301,7 +302,9 @@ def test_step_failure_dumps_repro_state(tmp_path):
 
 @pytest.mark.parametrize("arg", ["devices", "batch_cameras"])
 def test_multi_device_refused(tmp_path, arg):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """A multi-device Trainer needs the ranks' process group: without it,
+    it refuses (cli.train starts and joins the ranks)."""
+    with pytest.raises(RuntimeError, match="process group"):
         Trainer(None, OptimizationConfig(), str(tmp_path), **{arg: 2})
 
 
