@@ -1,0 +1,156 @@
+"""Render bridge: model + environment map -> rasterizer -> composited frame
+(counterpart of adgs_tpu/render.py, same entry points and output keys).
+
+Evaluates the temporal deformation at the camera's time, rasterizes with
+depth/opacity (and optional flow/semantic) targets, and composites the
+environment-map sky behind the splatted foreground via the accumulated
+opacity. render() is differentiable (the training step takes its
+gradients, and dL/dmean2d through a zero `screen_offset`); the serving
+entry point make_staged_render_fn runs it under torch.no_grad().
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from ._stages import mark
+from .core.camera import Camera
+from .models.env_map import EnvironmentMap
+from .models.gaussians import (GaussianConfig, GaussianParams, GaussianState,
+                               activated_scaling, deformed_package,
+                               deformed_xyz, obj_mask)
+from .raster import binning as binning_lib
+from .raster import preprocess as prep_lib
+from .raster.api import rasterize, resolve_backend
+from .raster.types import RasterSettings
+
+
+def settings_for_camera(cam: Camera, sh_degree: int, inv_depth: bool = True,
+                        scale_modifier: float = 1.0) -> RasterSettings:
+    return RasterSettings(
+        viewmatrix=cam.world_view, projmatrix=cam.full_proj,
+        campos=cam.camera_center,
+        bg=torch.zeros(3, dtype=torch.float32, device=cam.world_view.device),
+        image_height=cam.height, image_width=cam.width,
+        tanfovx=cam.tan_fovx, tanfovy=cam.tan_fovy, sh_degree=sh_degree,
+        scale_modifier=scale_modifier, inv_depth=inv_depth)
+
+
+@torch.no_grad()
+def compute_binning(camera: Camera, params: GaussianParams,
+                    state: GaussianState, config: GaussianConfig,
+                    active_sh_degree: Optional[int] = None,
+                    inv_depth: bool = True, scaling_modifier: float = 1.0,
+                    capacity: int = 1 << 18,
+                    backend: Optional[str] = None) -> binning_lib.Binning:
+    """The first half of a render: deform + preprocess (geometry only, no
+    SH colour) + tile binning."""
+    sh_degree = (active_sh_degree if active_sh_degree is not None
+                 else config.sh_degree)
+    settings = settings_for_camera(camera, sh_degree, inv_depth,
+                                   scaling_modifier)
+    backend = resolve_backend(backend, params.scene_xyz.device)
+    pkg = deformed_package(params, state, config, camera.time)
+    prep = prep_lib.preprocess(pkg["xyz"], activated_scaling(params),
+                               pkg["rotation"], pkg["opacity"], None,
+                               settings, active_mask=state.alive)
+    return binning_lib.bin_gaussians(prep, settings, capacity,
+                                     backend=backend)
+
+
+def make_staged_render_fn(config: GaussianConfig,
+                          active_sh_degree: Optional[int] = None,
+                          inv_depth: bool = True,
+                          backend: Optional[str] = None,
+                          capacity: int = 1 << 18,
+                          render_objmask: bool = False,
+                          layout: str = "gather"):
+    """The serving entry point: render() with its options bound. Returns
+    fn(camera, params, state, env, cam_rays, stage_marks=None) -> render()
+    dict, computed without an autograd graph. The JAX entry point splits
+    binning and rendering into two compiled programs; run eagerly, one
+    deform and one preprocess feed both, so the port needs no split.
+    layout: the compositor's instance layout, "gather" or "rows" (the JAX
+    package's ADGS_RM=0/1)."""
+
+    @torch.no_grad()
+    def full(camera, params, state, env, cam_rays, stage_marks=None):
+        return render(camera, params, state, config, env_map=env,
+                      cam_rays=cam_rays, render_objmask=render_objmask,
+                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
+                      backend=backend, capacity=capacity,
+                      stage_marks=stage_marks, layout=layout)
+
+    return full
+
+
+def render(camera: Camera, params: GaussianParams, state: GaussianState,
+           config: GaussianConfig,
+           env_map: Optional[EnvironmentMap] = None,
+           cam_rays: Optional[torch.Tensor] = None,
+           flow_time: Optional[torch.Tensor] = None,
+           render_objmask: bool = False,
+           override_color: Optional[torch.Tensor] = None,
+           screen_offset: Optional[torch.Tensor] = None,
+           active_sh_degree: Optional[int] = None,
+           inv_depth: bool = True, scaling_modifier: float = 1.0,
+           backend: Optional[str] = None, capacity: int = 1 << 18,
+           stage_marks: Optional[list] = None,
+           layout: str = "gather") -> dict[str, Any]:
+    """screen_offset: [N, 2] zeros whose gradient is dL/dmean2d.
+    layout: the compositor's instance layout, "gather" or "rows".
+    stage_marks: a list to receive CUDA-event marks "start", "deform",
+    "preprocess", "binning", "compositing" and "sky" (adgs_tpu_torch._stages);
+    None records nothing."""
+    sh_degree = (active_sh_degree if active_sh_degree is not None
+                 else config.sh_degree)
+    settings = settings_for_camera(camera, sh_degree, inv_depth,
+                                   scaling_modifier)
+    backend = resolve_backend(backend, params.scene_xyz.device)
+    mark(stage_marks, "start")
+
+    flow_points = None
+    if flow_time is not None:
+        flow_points = deformed_xyz(params, config, flow_time)
+    pkg = deformed_package(params, state, config, camera.time)
+    semantic = None
+    if render_objmask:
+        semantic = obj_mask(params).to(torch.float32)[:, None]
+    mark(stage_marks, "deform")
+
+    out = rasterize(
+        means3d=pkg["xyz"], opacities=pkg["opacity"],
+        scales=activated_scaling(params), rotations=pkg["rotation"],
+        settings=settings,
+        shs=pkg["shs"] if override_color is None else None,
+        colors_precomp=override_color, flow_points=flow_points,
+        semantic=semantic, screen_offset=screen_offset,
+        active_mask=state.alive, backend=backend, capacity=capacity,
+        stage_marks=stage_marks, layout=layout)
+
+    foreground = out.color
+    if env_map is not None and cam_rays is not None:
+        background = env_map.image_background(cam_rays, camera.world_view,
+                                              backend=backend)
+        rendered = foreground + (1.0 - out.opacity) * background
+    else:
+        background = torch.zeros_like(foreground)
+        rendered = foreground
+    mark(stage_marks, "sky")
+
+    return {
+        "render": rendered,
+        "foreground": foreground,
+        "background": background,
+        "depth": out.depth[0],
+        "img_opacity": out.opacity[0],
+        "img_flow": out.flow,
+        "img_semantic": out.semantic,
+        "radii": out.radii,
+        "visibility_filter": out.radii > 0,
+        "num_rendered": out.num_rendered,
+        "opacity": pkg["opacity"],
+        **pkg,
+    }
