@@ -9,7 +9,9 @@ Takes the JAX CLI's arguments (ModelConfig and OptimizationConfig fields,
 a python config file) and runs the JAX trainer's schedule on the card
 unless --device says otherwise. ADGS_RM=1 selects the rows instance
 layout, as for cli.render. --profile DIR writes a torch.profiler Chrome
-trace of steps 20-39 into DIR.
+trace of steps 20-39 into DIR, with the program's spans in it
+(adgs_tpu_torch.profiling), and their summary to metrics.jsonl (split
+"profile", at step 40).
 
 Multi-device training, as the JAX command line means it: --devices D
 shards each frame's tile rows over D ranks (--primitive_exchange routes
@@ -80,7 +82,9 @@ def main(argv=None):
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler trace of steps 20-39 "
-                             "to DIR")
+                             "to DIR, with the program's spans, and their "
+                             "summary (host ms, h2d_bytes, host_syncs per "
+                             "iteration) to metrics.jsonl, split profile")
     parser.add_argument("--device", default=None,
                         help="the card unless given (e.g. cpu)")
     parser.add_argument("--exchange_capacity", type=int, default=0,

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiling import copied_in
 
 
 def world_to_view(R: np.ndarray, t: np.ndarray,
@@ -88,7 +89,9 @@ class Camera:
         cam_center = np.linalg.inv(wv)[3, :3]
 
         def f32(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+            x = torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+            copied_in(x)
+            return x
 
         return cls(world_view=f32(wv), full_proj=f32(full),
                    camera_center=f32(cam_center), time=f32(time),

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import copied_in
+
 _EPS = 1e-8
 
 
@@ -35,7 +37,9 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    sign = q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    copied_in(sign)
+    return q * sign
 
 
 def to_rotation_matrix(q: torch.Tensor, normalized: bool = False

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import quaternion as quat
+from ..profiling import copied_in
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +42,7 @@ def deboor_cox_matrix(order: int) -> np.ndarray:
 def bspline_basis(u: torch.Tensor, order: int) -> torch.Tensor:
     """Basis weights over the order+1 control points of the window."""
     mat = torch.as_tensor(deboor_cox_matrix(order), device=u.device)
+    copied_in(mat)
     powers = u ** torch.arange(0.0, order + 1.0, device=u.device)
     return powers @ mat
 
@@ -138,6 +140,7 @@ def eval_quat_trajectory(t: torch.Tensor, param: torch.Tensor,
     pts, u = _window(param, t, cfg.quat_ctrl, cfg.quat_order, offset)
 
     identity = param.new_tensor([1.0, 0.0, 0.0, 0.0])
+    copied_in(identity)
     ctrl = quat.normalize((pts + identity[:, None]).transpose(-1, -2))
 
     basis = bspline_basis(u, cfg.quat_order)                 # [k+1]

@@ -15,6 +15,7 @@ import torch
 from PIL import Image
 
 from .._device import resolve_device
+from ..profiling import copied_in
 from ..core.camera import Camera
 from ..ops.flow import FlowPackage
 from ..train.losses import FrameBatch
@@ -69,8 +70,9 @@ def load_frame(info: FrameInfo, resolution: int = 1,
                         width=w, height=h, time=info.time, device=dev)
 
     def t(a):
-        return torch.as_tensor(np.array(a, np.float32, order="C"),
-                               device=dev)
+        x = torch.as_tensor(np.array(a, np.float32, order="C"), device=dev)
+        copied_in(x)
+        return x
 
     batch = FrameBatch(image=t(rgb), depth=t(depth), sky=t(sky),
                        semantic=t(semantic))
@@ -84,7 +86,9 @@ def flow_package(raw: list, device=None) -> FlowPackage:
     t, K, R, T, flow, vis = raw
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        x = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        copied_in(x)
+        return x
 
     return FlowPackage(time=f32(np.float32(t)), K=f32(K), R=f32(R),
                        T=f32(np.asarray(T).reshape(-1)), flow=f32(flow),

@@ -12,6 +12,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.grid_sample import GridSample
+from ..profiling import copied_in
 
 
 def camera_rays(focal: float, height: int, width: int) -> np.ndarray:
@@ -69,7 +70,9 @@ class EnvironmentMap:
             view = view / torch.clamp(torch.linalg.vector_norm(
                 view, dim=-1, keepdim=True), min=1e-12)
             angles = direction_to_angles(view)
-        coords = angles * angles.new_tensor([1.0 / math.pi, 2.0 / math.pi])
+        per_rad = angles.new_tensor([1.0 / math.pi, 2.0 / math.pi])
+        copied_in(per_rad)
+        coords = angles * per_rad
         if backend not in ("cuda", "torch"):
             raise ValueError(f"unknown backend: {backend}")
         return torch.sigmoid(GridSample.apply(

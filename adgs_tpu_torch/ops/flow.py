@@ -9,6 +9,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..profiling import copied_in
+
 
 class FlowPackage(NamedTuple):
     """One flow supervision target."""
@@ -58,7 +60,9 @@ def flow_loss_sums(img_flow: torch.Tensor, flow_img: torch.Tensor,
 
     target = flow_img.reshape(2, -1).T                   # [hw, 2]
     err = torch.abs(uv - target) * weight[:, None]
-    err = err / err.new_tensor([float(W), float(H)])
+    size = err.new_tensor([float(W), float(H)])
+    copied_in(size)
+    err = err / size
     return torch.sum(err), count
 
 

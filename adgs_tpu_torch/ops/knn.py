@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profiling import copied_in
+
 try:
     from scipy.spatial import cKDTree
     _HAVE_SCIPY = True
@@ -136,6 +138,7 @@ def near_idx_device(pts: torch.Tensor, alive: torch.Tensor, r: torch.Tensor,
     rows are alive; invalid groups hold index 0."""
     alive_col = alive[:, None]
     inf = torch.tensor(float("inf"), dtype=pts.dtype, device=pts.device)
+    copied_in(inf)
     lo = torch.amin(torch.where(alive_col, pts, inf), dim=0)
     hi = torch.amax(torch.where(alive_col, pts, -inf), dim=0)
     span = torch.clamp(hi - lo, min=1e-9)

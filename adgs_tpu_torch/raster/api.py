@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from .._stages import mark
+from ..profiling import span
 from . import binning as binning_lib
 from . import preprocess as prep_lib
 from . import render as render_lib
@@ -54,17 +55,20 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
     if shs is None and colors_precomp is None:
         raise ValueError("either shs or colors_precomp is required")
     backend = resolve_backend(backend, means3d.device)
-    prep = prep_lib.preprocess(means3d, scales, rotations, opacities, shs,
-                               settings, colors_precomp=colors_precomp,
-                               screen_offset=screen_offset,
-                               active_mask=active_mask)
+    with span("render.preprocess"):
+        prep = prep_lib.preprocess(means3d, scales, rotations, opacities,
+                                   shs, settings,
+                                   colors_precomp=colors_precomp,
+                                   screen_offset=screen_offset,
+                                   active_mask=active_mask)
     mark(stage_marks, "preprocess")
-    with torch.no_grad():
+    with span("render.binning"), torch.no_grad():
         binning = binning_lib.bin_gaussians(prep, settings, capacity,
                                             backend=backend)
     mark(stage_marks, "binning")
-    out = render_lib.render(prep, binning, settings, flow_points=flow_points,
-                            semantic=semantic, backend=backend,
-                            layout=layout)
+    with span("render.compositing"):
+        out = render_lib.render(prep, binning, settings,
+                                flow_points=flow_points, semantic=semantic,
+                                backend=backend, layout=layout)
     mark(stage_marks, "compositing")
     return out

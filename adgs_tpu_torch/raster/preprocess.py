@@ -8,6 +8,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import sh as sh_lib
+from ..profiling import copied_in
 from ..core.camera import ndc_to_pix, transform_point_4x3, transform_point_4x4
 from ..core.covariance import build_cov3d, project_cov3d_to_2d
 from .types import RasterSettings, TILE_X, TILE_Y
@@ -72,8 +73,9 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
         mean2d = mean2d + screen_offset
 
     cov3d = build_cov3d(scales, rotations, settings.scale_modifier)
-    safe_view = torch.where(in_front[..., None], p_view,
-                            p_view.new_tensor([0.0, 0.0, 1.0]))
+    forward = p_view.new_tensor([0.0, 0.0, 1.0])
+    copied_in(forward)
+    safe_view = torch.where(in_front[..., None], p_view, forward)
     c2 = project_cov3d_to_2d(safe_view, cov3d, settings.viewmatrix,
                              settings.focal_x, settings.focal_y,
                              settings.tanfovx, settings.tanfovy)

@@ -11,6 +11,7 @@ entry point make_staged_render_fn runs it under torch.no_grad().
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Optional
 
 import torch
@@ -21,6 +22,7 @@ from .models.env_map import EnvironmentMap
 from .models.gaussians import (GaussianConfig, GaussianParams, GaussianState,
                                activated_scaling, deformed_package,
                                deformed_xyz, obj_mask)
+from .profiling import span
 from .raster import binning as binning_lib
 from .raster import preprocess as prep_lib
 from .raster.api import rasterize, resolve_backend
@@ -73,15 +75,19 @@ def make_staged_render_fn(config: GaussianConfig,
     binning and rendering into two compiled programs; run eagerly, one
     deform and one preprocess feed both, so the port needs no split.
     layout: the compositor's instance layout, "gather" or "rows" (the JAX
-    package's ADGS_RM=0/1)."""
+    package's ADGS_RM=0/1). Each call is one "serve.frame" root span
+    (profiling.span), numbered by the calls of this function."""
+    frames = itertools.count()
 
     @torch.no_grad()
     def full(camera, params, state, env, cam_rays, stage_marks=None):
-        return render(camera, params, state, config, env_map=env,
-                      cam_rays=cam_rays, render_objmask=render_objmask,
-                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
-                      backend=backend, capacity=capacity,
-                      stage_marks=stage_marks, layout=layout)
+        with span("serve.frame", next(frames)):
+            return render(camera, params, state, config, env_map=env,
+                          cam_rays=cam_rays, render_objmask=render_objmask,
+                          active_sh_degree=active_sh_degree,
+                          inv_depth=inv_depth, backend=backend,
+                          capacity=capacity, stage_marks=stage_marks,
+                          layout=layout)
 
     return full
 
@@ -111,13 +117,14 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
     backend = resolve_backend(backend, params.scene_xyz.device)
     mark(stage_marks, "start")
 
-    flow_points = None
-    if flow_time is not None:
-        flow_points = deformed_xyz(params, config, flow_time)
-    pkg = deformed_package(params, state, config, camera.time)
-    semantic = None
-    if render_objmask:
-        semantic = obj_mask(params).to(torch.float32)[:, None]
+    with span("render.deform"):
+        flow_points = None
+        if flow_time is not None:
+            flow_points = deformed_xyz(params, config, flow_time)
+        pkg = deformed_package(params, state, config, camera.time)
+        semantic = None
+        if render_objmask:
+            semantic = obj_mask(params).to(torch.float32)[:, None]
     mark(stage_marks, "deform")
 
     out = rasterize(
@@ -131,13 +138,14 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
         stage_marks=stage_marks, layout=layout)
 
     foreground = out.color
-    if env_map is not None and cam_rays is not None:
-        background = env_map.image_background(cam_rays, camera.world_view,
-                                              backend=backend)
-        rendered = foreground + (1.0 - out.opacity) * background
-    else:
-        background = torch.zeros_like(foreground)
-        rendered = foreground
+    with span("render.sky"):
+        if env_map is not None and cam_rays is not None:
+            background = env_map.image_background(
+                cam_rays, camera.world_view, backend=backend)
+            rendered = foreground + (1.0 - out.opacity) * background
+        else:
+            background = torch.zeros_like(foreground)
+            rendered = foreground
     mark(stage_marks, "sky")
 
     return {

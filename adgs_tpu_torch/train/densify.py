@@ -26,6 +26,7 @@ import torch
 
 from ..core.quaternion import to_rotation_matrix
 from ..models.gaussians import GaussianParams, GaussianState
+from ..profiling import copied_in
 from .optim import AdamState, TrainableState
 
 SCENE_FIELDS = ("scene_xyz", "scene_shs_dc", "scene_shs_rest",
@@ -89,8 +90,11 @@ def _scatter_copies(blocks: dict, alive: torch.Tensor,
             vals = ov[copy_idx, cand_src]
         else:
             vals = torch.tensor(ov, dtype=arr.dtype, device=dev)
+            copied_in(vals)
         out[name] = put(arr, vals)
-    new_alive = put(alive, torch.tensor(True, device=dev))
+    true = torch.tensor(True, device=dev)
+    copied_in(true)
+    new_alive = put(alive, true)
     n_written = torch.sum(valid)
     n_dropped = copies * n_src - n_written
     return out, new_alive, n_written, n_dropped

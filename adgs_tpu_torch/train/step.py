@@ -24,6 +24,7 @@ from .._stages import mark
 from ..core.camera import Camera
 from ..models.env_map import EnvironmentMap
 from ..models.gaussians import GaussianConfig, GaussianParams, GaussianState
+from ..profiling import span
 from ..raster.api import resolve_backend
 from ..render import render
 from .config import OptimizationConfig
@@ -78,10 +79,14 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
                      backend=be, capacity=capacity, stage_marks=stage_marks,
                      layout=layout)
-        total, logs = compute_losses(pkg, batch, tr.gaussians, state, config,
-                                     opt, frame_gap, scene_extent, backend=be)
+        with span("step.losses"):
+            total, logs = compute_losses(pkg, batch, tr.gaussians, state,
+                                         config, opt, frame_gap, scene_extent,
+                                         backend=be)
         mark(stage_marks, "losses")
-        grads = torch.autograd.grad(total, inputs + [so], allow_unused=True)
+        with span("step.backward"):
+            grads = torch.autograd.grad(total, inputs + [so],
+                                        allow_unused=True)
         mark(stage_marks, "backward")
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs + [so], grads)]
@@ -94,22 +99,24 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
     @torch.no_grad()
     def update(params, env, opt_state, state, out: LossAndGrads, iteration,
                stage_marks=None):
-        lrs = lr_tree(opt, scene_extent, cameras_extent, iteration)
-        new_tr, new_opt_state = adam_update(
-            TrainableState(gaussians=params, env=env), out.grads, opt_state,
-            lrs)
+        with span("step.adam"):
+            lrs = lr_tree(opt, scene_extent, cameras_extent, iteration)
+            new_tr, new_opt_state = adam_update(
+                TrainableState(gaussians=params, env=env), out.grads,
+                opt_state, lrs)
         mark(stage_marks, "adam")
-        vis = out.visibility
-        visf = vis.to(torch.float32)
-        snorm = torch.linalg.vector_norm(out.screen_grad, dim=-1)
-        new_state = dataclasses.replace(
-            state,
-            max_radii2d=torch.maximum(
-                state.max_radii2d,
-                torch.where(vis, out.radii.to(torch.float32),
-                            torch.zeros_like(visf))),
-            xyz_grad_accum=state.xyz_grad_accum + snorm * visf,
-            denom=state.denom + visf)
+        with span("step.stats"):
+            vis = out.visibility
+            visf = vis.to(torch.float32)
+            snorm = torch.linalg.vector_norm(out.screen_grad, dim=-1)
+            new_state = dataclasses.replace(
+                state,
+                max_radii2d=torch.maximum(
+                    state.max_radii2d,
+                    torch.where(vis, out.radii.to(torch.float32),
+                                torch.zeros_like(visf))),
+                xyz_grad_accum=state.xyz_grad_accum + snorm * visf,
+                denom=state.denom + visf)
         mark(stage_marks, "stats")
         return new_tr.gaussians, new_tr.env, new_opt_state, new_state
 

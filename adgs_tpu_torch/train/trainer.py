@@ -49,7 +49,8 @@ from ..models import gaussians as gm
 from ..models.env_map import EnvironmentMap, camera_rays
 from ..ops import knn
 from ..ops.image import psnr
-from ..profiling import StepTimer, trace
+from .. import profiling
+from ..profiling import copied_in, count, span, trace
 from .. import render as render_lib
 from . import checkpoint as ckpt_lib
 from . import densify as densify_lib
@@ -79,13 +80,18 @@ class MetricsLogger:
                 self.tb = SummaryWriter(model_path)
 
     def scalars(self, step: int, values: dict, prefix: str = "train"):
+        """values: {name: number or 0-d tensor} (a tensor on a card is
+        read once, a host sync each)."""
+        count("host_syncs", sum(isinstance(v, torch.Tensor)
+                                for v in values.values()))
+        values = {k: float(v) for k, v in values.items()}
         rec = {"step": step, "split": prefix}
-        rec.update({k: float(v) for k, v in values.items()})
+        rec.update(values)
         self.f.write(json.dumps(rec) + "\n")
         self.f.flush()
         if self.tb is not None:
             for k, v in values.items():
-                self.tb.add_scalar(f"{prefix}/{k}", float(v), step)
+                self.tb.add_scalar(f"{prefix}/{k}", v, step)
 
     def image(self, step: int, tag: str, img: np.ndarray):
         """img: [3, H, W] or [H, W] float in [0, 1] -> TensorBoard."""
@@ -236,6 +242,7 @@ class Trainer:
             self._ray_cache[cam_id] = torch.as_tensor(
                 camera_rays(cam.focal_x, cam.height, cam.width),
                 dtype=torch.float32, device=self.device)
+            copied_in(self._ray_cache[cam_id])
         return self._ray_cache[cam_id]
 
     def _frames_for_step(self, picks: list, opt):
@@ -254,6 +261,7 @@ class Trainer:
                 batch = batch._replace(
                     flow=flow_package(raw, device=self.device),
                     flow_valid=torch.tensor(True, device=self.device))
+                copied_in(batch.flow_valid)
             elif want_flow:
                 from ..ops.flow import FlowPackage
                 H, W = batch.depth.shape
@@ -267,6 +275,7 @@ class Trainer:
                         flow=z((2, H, W), device=self.device),
                         vis=z((H, W), device=self.device)),
                     flow_valid=torch.tensor(False, device=self.device))
+                copied_in(batch.flow_valid)
             cams.append(cam)
             batches.append(batch)
             rays.append(self._rays_for(cam, frames[i].cam_id))
@@ -338,42 +347,48 @@ class Trainer:
         (scipy, anchors drawn with `np_rng`)."""
         if not self.use_near_idx:
             return
-        K = self.opt.near_num
-        a_cap = max(1, self.params.obj_capacity // K)
-        if not int(os.environ.get("ADGS_KNN_HOST", "0")):
-            pts = self.params.obj_xyz
+        with span("trainer.refresh"):
+            K = self.opt.near_num
+            a_cap = max(1, self.params.obj_capacity // K)
+            if not int(os.environ.get("ADGS_KNN_HOST", "0")):
+                pts = self.params.obj_xyz
+                if self.config.use_time_mask:
+                    pts = torch.cat([pts, self.state.gs_time[:, None]
+                                     * self.scene.scene_extent], dim=1)
+                r = torch.rand((pts.shape[0],), generator=self.generator,
+                               device=self.device)
+                idx, valid = knn.near_idx_device(pts, self.state.obj_alive,
+                                                 r, K, a_cap)
+                self.state = dataclasses.replace(
+                    self.state, obj_near_idx=idx, obj_near_valid=valid)
+                return
+            oa = self.state.obj_alive.cpu().numpy()
+            count("host_syncs")
+            idx_alive = np.nonzero(oa)[0]
+            if len(idx_alive) < K:
+                return
+            pts = self.params.obj_xyz.detach().cpu().numpy()[idx_alive]
+            count("host_syncs")
             if self.config.use_time_mask:
-                pts = torch.cat([pts, self.state.gs_time[:, None]
-                                 * self.scene.scene_extent], dim=1)
-            r = torch.rand((pts.shape[0],), generator=self.generator,
-                           device=self.device)
-            idx, valid = knn.near_idx_device(pts, self.state.obj_alive, r, K,
-                                             a_cap)
+                t = self.state.gs_time.cpu().numpy()[idx_alive]
+                count("host_syncs")
+                pts = np.concatenate(
+                    [pts, t[:, None] * self.scene.scene_extent], axis=1)
+            n_anchor = max(1, len(idx_alive) // K)
+            perm = self.np_rng.permutation(len(idx_alive))[:n_anchor]
+            nn = knn.knn_indices(pts[perm], pts, k=K)
+            # map back to padded slot indices; pad anchors to a stable shape
+            idx = idx_alive[nn].astype(np.int32)
+            out = np.zeros((a_cap, K), np.int32)
+            valid = np.zeros(a_cap, bool)
+            n = min(a_cap, idx.shape[0])
+            out[:n] = idx[:n]
+            valid[:n] = True
             self.state = dataclasses.replace(
-                self.state, obj_near_idx=idx, obj_near_valid=valid)
-            return
-        oa = self.state.obj_alive.cpu().numpy()
-        idx_alive = np.nonzero(oa)[0]
-        if len(idx_alive) < K:
-            return
-        pts = self.params.obj_xyz.detach().cpu().numpy()[idx_alive]
-        if self.config.use_time_mask:
-            t = self.state.gs_time.cpu().numpy()[idx_alive]
-            pts = np.concatenate(
-                [pts, t[:, None] * self.scene.scene_extent], axis=1)
-        n_anchor = max(1, len(idx_alive) // K)
-        perm = self.np_rng.permutation(len(idx_alive))[:n_anchor]
-        nn = knn.knn_indices(pts[perm], pts, k=K)
-        # map back to padded slot indices; pad anchors to a stable shape
-        idx = idx_alive[nn].astype(np.int32)
-        out = np.zeros((a_cap, K), np.int32)
-        valid = np.zeros(a_cap, bool)
-        n = min(a_cap, idx.shape[0])
-        out[:n] = idx[:n]
-        valid[:n] = True
-        self.state = dataclasses.replace(
-            self.state, obj_near_idx=torch.as_tensor(out, device=self.device),
-            obj_near_valid=torch.as_tensor(valid, device=self.device))
+                self.state,
+                obj_near_idx=torch.as_tensor(out, device=self.device),
+                obj_near_valid=torch.as_tensor(valid, device=self.device))
+            copied_in(self.state.obj_near_idx, self.state.obj_near_valid)
 
     def _grow_exchange_capacity(self):
         """The primitive exchange dropped rows (shard.py
@@ -408,6 +423,7 @@ class Trainer:
         """Double a Gaussian block that is more than 90% alive."""
         ns = int(self.state.num_scene)
         no = int(self.state.num_obj)
+        count("host_syncs", 2)
         Ns = self.params.scene_capacity
         No = self.params.obj_capacity
         grow_s = Ns if ns > 0.9 * Ns else 0
@@ -453,7 +469,6 @@ class Trainer:
             self._build_step()
         self.refresh_near_idx()
 
-        self.timer = timer = StepTimer()
         # --profile: trace a short steady-state window (steps 20-39)
         prof_window = (range(20, 40) if self.profile_dir and self.is_main
                        else range(0))
@@ -465,96 +480,128 @@ class Trainer:
         for it in range(self.iteration + 1, iterations + 1):
             self.iteration = it
             if self.profile_dir and it == prof_window.start:
+                profiling.reset()
                 prof_ctx = trace(self.profile_dir)
                 prof_ctx.__enter__()
             if prof_ctx is not None and it == prof_window.stop:
-                prof_ctx.__exit__(None, None, None)
+                self._close_profile(prof_ctx, it)
                 prof_ctx = None
-                print(f"[profile] trace written to {self.profile_dir}")
-            if it % 1000 == 0 and self.active_sh_degree < self.config.sh_degree:
-                self.active_sh_degree += 1
+            with span("trainer.iteration", it):
+                if (it % 1000 == 0
+                        and self.active_sh_degree < self.config.sh_degree):
+                    self.active_sh_degree += 1
 
-            picks = []
-            for _ in range(self.batch_cameras):
-                if not stack:
-                    stack = list(range(len(self.scene.train_frames)))
-                    if opt.data_sample == "stack":
-                        self.rng.shuffle(stack)
-                picks.append(stack.pop(0 if opt.data_sample == "order"
-                                       else self.rng.randrange(len(stack))))
-            fidx = picks[0]
-            cam, batch, rays = self._frames_for_step(picks, opt)
+                picks = []
+                for _ in range(self.batch_cameras):
+                    if not stack:
+                        stack = list(range(len(self.scene.train_frames)))
+                        if opt.data_sample == "stack":
+                            self.rng.shuffle(stack)
+                    picks.append(stack.pop(
+                        0 if opt.data_sample == "order"
+                        else self.rng.randrange(len(stack))))
+                fidx = picks[0]
+                with span("trainer.frames"):
+                    cam, batch, rays = self._frames_for_step(picks, opt)
 
-            try:
-                with timer:
-                    (self.params, self.env, self.opt_state, self.state,
-                     logs) = self._step_fn(
-                        self.params, self.env, self.opt_state, self.state,
-                        cam, batch, rays, it,
-                        active_sh_degree=self.active_sh_degree)
-                    loss = float(logs["total_loss"])  # waits for the step
-            except Exception:
-                path = self._dump_failure_snapshot(it, fidx)
-                print(f"[debug] step {it} raised; repro state dumped to "
-                      f"{path} (frame {fidx})", file=sys.stderr)
-                raise
-            num_rendered = int(logs["num_rendered"])
-            ema = 0.4 * loss + 0.6 * ema if it > 1 else loss
-            if it % log_every == 0:
-                self.logger.scalars(
-                    it, dict(logs, steps_per_sec=timer.steps_per_sec))
-            # per-step overflow guard: a frame whose num_rendered exceeds
-            # the capacity truncated its tile lists, so grow now
-            if (num_rendered > self.capacity
-                    or it % opt.densification_interval == 0):
-                self._maybe_grow_instance_capacity(num_rendered)
-            # per-step exchange-overflow guard: that step dropped rows
-            # routed to an overloaded slab, so grow now (the JAX trainer
-            # checks only every densification interval)
-            if self.mesh is not None and bool(logs["exchange_overflow"]):
-                self._grow_exchange_capacity()
-            if it % 200 == 0:
-                n = int(self.state.num_scene) + int(self.state.num_obj)
-                self._say(f"[{it}/{iterations}] loss={ema:.5f} pts={n} "
-                          f"({(time.time() - t_start):.0f}s)")
+                try:
+                    with span("trainer.step"):
+                        (self.params, self.env, self.opt_state, self.state,
+                         logs) = self._step_fn(
+                            self.params, self.env, self.opt_state,
+                            self.state, cam, batch, rays, it,
+                            active_sh_degree=self.active_sh_degree)
+                    with span("trainer.read"):
+                        loss = float(logs["total_loss"])  # waits for it
+                        num_rendered = int(logs["num_rendered"])
+                        count("host_syncs", 2)
+                except Exception:
+                    path = self._dump_failure_snapshot(it, fidx)
+                    print(f"[debug] step {it} raised; repro state dumped to "
+                          f"{path} (frame {fidx})", file=sys.stderr)
+                    raise
+                ema = 0.4 * loss + 0.6 * ema if it > 1 else loss
+                if it % log_every == 0 or it % 200 == 0:
+                    with span("trainer.log"):
+                        if it % log_every == 0:
+                            self.logger.scalars(it, logs)
+                        if it % 200 == 0:
+                            n = (int(self.state.num_scene)
+                                 + int(self.state.num_obj))
+                            count("host_syncs", 2)
+                            self._say(f"[{it}/{iterations}] loss={ema:.5f} "
+                                      f"pts={n} "
+                                      f"({(time.time() - t_start):.0f}s)")
+                # per-step overflow guard: a frame whose num_rendered
+                # exceeds the capacity truncated its tile lists, so grow now
+                if (num_rendered > self.capacity
+                        or it % opt.densification_interval == 0):
+                    self._maybe_grow_instance_capacity(num_rendered)
+                # per-step exchange-overflow guard: that step dropped rows
+                # routed to an overloaded slab, so grow now (the JAX
+                # trainer checks only every densification interval)
+                if self.mesh is not None:
+                    count("host_syncs")
+                    if bool(logs["exchange_overflow"]):
+                        self._grow_exchange_capacity()
 
-            # densification (train.py:148-160)
-            if it < opt.densify_until_iter:
-                if (it > opt.densify_from_iter
-                        and it % opt.densification_interval == 0):
-                    t, self.opt_state, self.state, _ = \
-                        densify_lib.densify_and_prune(
-                            TrainableState(self.params, self.env),
-                            self.opt_state, self.state, self.generator,
-                            opt.densify_scene_grad_threshold,
-                            opt.densify_obj_grad_threshold,
-                            opt.min_opacity,
-                            it > opt.opacity_reset_interval,
-                            self.scene.scene_extent, opt.object_extent,
-                            opt.percent_dense)
-                    self.params, self.env = t.gaussians, t.env
-                    self._maybe_grow_capacity()
-                    self.refresh_near_idx()
-                    self.check_replicas(f"densify at {it}")
-                elif (self.use_near_idx
-                      and it % opt.near_idx_reset_interval == 0):
-                    self.refresh_near_idx()
-                if (it % opt.opacity_reset_interval == 0
-                        or (self.white_background
-                            and it == opt.densify_from_iter)):
-                    # white-background scenes also reset once at the start
-                    # of densification
-                    t, self.opt_state = densify_lib.reset_opacity(
-                        TrainableState(self.params, self.env), self.opt_state)
-                    self.params, self.env = t.gaussians, t.env
+                # densification (train.py:148-160)
+                if it < opt.densify_until_iter:
+                    if (it > opt.densify_from_iter
+                            and it % opt.densification_interval == 0):
+                        with span("trainer.densify"):
+                            t, self.opt_state, self.state, _ = \
+                                densify_lib.densify_and_prune(
+                                    TrainableState(self.params, self.env),
+                                    self.opt_state, self.state,
+                                    self.generator,
+                                    opt.densify_scene_grad_threshold,
+                                    opt.densify_obj_grad_threshold,
+                                    opt.min_opacity,
+                                    it > opt.opacity_reset_interval,
+                                    self.scene.scene_extent,
+                                    opt.object_extent, opt.percent_dense)
+                            self.params, self.env = t.gaussians, t.env
+                            self._maybe_grow_capacity()
+                            self.refresh_near_idx()
+                            self.check_replicas(f"densify at {it}")
+                    elif (self.use_near_idx
+                          and it % opt.near_idx_reset_interval == 0):
+                        self.refresh_near_idx()
+                    if (it % opt.opacity_reset_interval == 0
+                            or (self.white_background
+                                and it == opt.densify_from_iter)):
+                        # white-background scenes also reset once at the
+                        # start of densification
+                        with span("trainer.densify"):
+                            t, self.opt_state = densify_lib.reset_opacity(
+                                TrainableState(self.params, self.env),
+                                self.opt_state)
+                            self.params, self.env = t.gaussians, t.env
 
-            if it in test_iterations:
-                self.evaluate(it)
-            if it in save_iterations:
-                self.save(it)
+                if it in test_iterations:
+                    self.evaluate(it)
+                if it in save_iterations:
+                    self.save(it)
         if prof_ctx is not None:
-            prof_ctx.__exit__(None, None, None)
+            self._close_profile(prof_ctx, iterations + 1)
         self.logger.flush()
+
+    def _close_profile(self, prof_ctx, it: int):
+        """End the --profile window: write the trace and the program's
+        span summary (metrics.jsonl, split "profile", at the step after
+        the window)."""
+        prof_ctx.__exit__(None, None, None)
+        print(f"[profile] trace written to {self.profile_dir}")
+        values = {}
+        for root, group in profiling.summary().items():
+            values[f"{root}/roots"] = group["roots"]
+            for name, entry in group["spans"].items():
+                values[f"{root}/{name}/ms"] = entry["ms"]
+                values[f"{root}/{name}/self_ms"] = entry["self_ms"]
+                for k, v in entry["counts"].items():
+                    values[f"{root}/{name}/{k}"] = v
+        self.logger.scalars(it, values, prefix="profile")
 
     # ------------------------------------------------------------------
     def eval_render_fn(self):

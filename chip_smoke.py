@@ -1801,7 +1801,6 @@ def trainer_phase(cams, seed, dev, card):
         mem = cli_render._to_uint8(torch.clamp(out["render"], 0.0, 1.0))
         it = trainer.iteration
         n_alive = int(trainer.state.num_scene) + int(trainer.state.num_obj)
-        ms_ema = trainer.timer.ema_s * 1e3
         del out, fn, trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -1826,7 +1825,7 @@ def trainer_phase(cams, seed, dev, card):
     summary = dict(
         seconds={k: round(v, 3) for k, v in seconds.items()},
         steps=len(probe.steps), alive_after=n_alive,
-        step_timer_ms=ms_ema, median_step_ms_no_densify=float(np.median(plain)),
+        median_step_ms_no_densify=float(np.median(plain)),
         step_ms=[round(s[1], 3) for s in probe.steps],
         losses=[round(float(x), 6) for x in losses],
         densify=probe.densify, resets=probe.resets,
@@ -1834,8 +1833,8 @@ def trainer_phase(cams, seed, dev, card):
         gaussian_growths=probe.grows, instance_growths=probe.instance_grows,
         peak_gb=peak_gb, cli_render=res)
     log(f"# trainer ({card}): " + json.dumps(summary))
-    log(f"# trainer ({card}): StepTimer {ms_ema:.3f} ms/step (EMA), median "
-        f"{summary['median_step_ms_no_densify']:.3f} ms over "
+    log(f"# trainer ({card}): median "
+        f"{summary['median_step_ms_no_densify']:.3f} ms/step over "
         f"{len(plain)} steps without densify; peak {peak_gb:.2f} GB; "
         f"seconds {json.dumps(summary['seconds'])}")
     return summary
@@ -1928,7 +1927,7 @@ def gate_phase(seed, dev, card):
     reps = [d["report"] for d in probe.densify]
     summary = dict(
         seconds={k: round(v, 3) for k, v in seconds.items()},
-        steps=len(probe.steps), step_timer_ms=trainer.timer.ema_s * 1e3,
+        steps=len(probe.steps),
         median_step_ms_no_densify=float(np.median(plain)),
         step_ms_p10_p90=[float(np.percentile(plain, q)) for q in (10, 90)],
         alive_after=int(trainer.state.num_scene) + int(trainer.state.num_obj),
@@ -1941,9 +1940,9 @@ def gate_phase(seed, dev, card):
         gt_max_num_rendered=nr, peak_gb=peak_gb, launches=launches,
         curve=result)
     log(f"# quality gate ({card}): " + json.dumps(summary))
-    log(f"# quality gate ({card}): StepTimer "
-        f"{summary['step_timer_ms']:.3f} ms/step (EMA), median "
-        f"{summary['median_step_ms_no_densify']:.3f} ms over {len(plain)} "
+    log(f"# quality gate ({card}): median "
+        f"{summary['median_step_ms_no_densify']:.3f} ms/step over "
+        f"{len(plain)} "
         f"steps without densify; {len(reps)} densifies wrote "
         f"{summary['cloned']} clones and {summary['split']} splits; peak "
         f"{peak_gb:.2f} GB; seconds {json.dumps(summary['seconds'])}")
@@ -3723,15 +3722,17 @@ def multi_trainer_rank(argv: list) -> dict:
     from adgs_tpu_torch.train import trainer as trainer_mod
 
     ev = dict(densify=0, reset=0, refresh=0, exchange=[], instance=[],
-              losses=[])
+              losses=[], step_s=[])
     real_make = shard.make_sharded_train_step
 
     def make_step(*a, **k):
         step = real_make(*a, **k)
 
         def counted(*sa, **sk):
+            t0 = time.perf_counter()
             res = step(*sa, **sk)
             ev["losses"].append(float(res[4]["total_loss"]))
+            ev["step_s"].append(time.perf_counter() - t0)
             return res
         return counted
 
@@ -3781,7 +3782,8 @@ def multi_trainer_rank(argv: list) -> dict:
     out = dict(ev, rank=tr.mesh.rank, main=tr.is_main,
                logger=type(tr.logger).__name__,
                replica_checks=tr.replica_checks, iteration=tr.iteration,
-               seconds=seconds, step_ms=tr.timer.ema_s * 1e3,
+               seconds=seconds, step_ms=1e3 * float(np.median(
+                   ev["step_s"][1:] or ev["step_s"])),
                alive=int(tr.state.num_scene) + int(tr.state.num_obj),
                capacity=tr.capacity, render_capacity=tr.render_capacity)
     if tr.device.type == "cuda":

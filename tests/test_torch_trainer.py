@@ -13,7 +13,7 @@ profiling on the CPU:
   - the overflow guard (as tests/test_data_cli.py::TestCapacityAutotune)
     and the failure snapshot (::TestFailureSnapshot);
   - multi-device arguments refused without a process group,
-    profiling.trace and StepTimer."""
+    profiling.trace with the program's spans in its trace."""
 
 import dataclasses
 import json
@@ -316,14 +316,26 @@ def test_layout_from_env(monkeypatch):
 
 
 def test_profiling_trace_and_timer(tmp_path):
+    """profiling.trace writes one Chrome trace; the program's spans opened
+    inside it lie in that trace as ranges, nested as they were opened,
+    and their counters reach summary()."""
+    profiling.reset()
     with profiling.trace(str(tmp_path / "prof")):
-        torch.ones(64).sum()
+        with profiling.span("serve.frame", 3):
+            with profiling.span("render.deform"):
+                torch.ones(64).sum()
+                profiling.count("host_syncs", 2)
     (f,) = os.listdir(tmp_path / "prof")
     assert f.endswith(".json")
-    assert "traceEvents" in json.load(open(tmp_path / "prof" / f))
-    timer = profiling.StepTimer()
-    assert timer.steps_per_sec == 0.0
-    for _ in range(2):
-        with timer:
-            pass
-    assert timer.steps_per_sec > 0.0
+    events = json.load(open(tmp_path / "prof" / f))["traceEvents"]
+    got = {e["name"]: e for e in events
+           if e.get("cat") == "user_annotation"}
+    outer, inner = got["serve.frame"], got["render.deform"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    (root,) = profiling.roots()
+    assert root.number == 3 and root.children[0].name == "render.deform"
+    s = profiling.summary()["serve.frame"]
+    assert s["roots"] == 1
+    assert s["spans"]["serve.frame"]["counts"] == {"host_syncs": 2}
+    profiling.reset()
