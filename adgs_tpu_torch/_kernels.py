@@ -44,6 +44,7 @@ SOURCES = {
     "grid_sample_bwd": "grid_sample_bwd.cu",
     "lab_cm": "lab_rowmajor.cu",
     "lab_rm": "lab_rowmajor.cu",
+    "adam": "adam.cu",
 }
 
 launches = {name: 0 for name in SOURCES}

@@ -570,7 +570,8 @@ def sharded_adam_update(trainables: TrainableState, grads: TrainableState,
         if i is None:
             return x
         per = x.shape[i] // W
-        return x.narrow(i, r * per, per)
+        # contiguous for Adam's kernel: the sky's slices (axis 1) are not
+        return x.narrow(i, r * per, per).contiguous()
 
     sliced = [from_leaves(trainables, [part(x, i) for x, i in zip(g, axes)])
               for g in groups]

@@ -88,7 +88,9 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
             grads = torch.autograd.grad(total, inputs + [so],
                                         allow_unused=True)
         mark(stage_marks, "backward")
-        grads = [torch.zeros_like(x) if g is None else g
+        # Adam's kernel takes contiguous leaves: the gradients of the SH
+        # leaves are strided views of their concatenation's gradient
+        grads = [torch.zeros_like(x) if g is None else g.contiguous()
                  for x, g in zip(inputs + [so], grads)]
         return LossAndGrads(
             logs={k: v.detach() for k, v in logs.items()},

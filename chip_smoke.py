@@ -100,8 +100,17 @@ Phases (any failure exits non-zero before the last line is printed):
      all segments empty, bounds[0] > 0 with bounds[n] < R; D in 1, 3,
      16, 33, 98), each case launched twice and bitwise equal; in the rows
      instance layout (ADGS_RM=1), B6 lane pad bitwise against its twin
-     and F.pad, B3 and B4 bitwise against their gather layout. This
-     phase and the next run after the timed paths, so that their
+     and F.pad, B3 and B4 bitwise against their gather layout; A1 Adam
+     (csrc/adam.cu, one launch over every leaf) bitwise its plain twin on
+     a training step's gradients (its leaves whose pointers are off 16
+     bytes logged), and over three steps, each from its own outputs, at
+     both train cells' leaf shapes (port_bench/scene.py sizes(spec, 2):
+     487,170,135 and 555,065,344 floats, the 3x8192x8192 sky; KITTI from
+     step 5251, Waymo from step 1), on the sharded update's slices (rank
+     1 of 2, the sky's on axis 1, made contiguous; also bitwise the full
+     update's slice), and on odd, empty and unaligned leaves; its time
+     beside its 28-byte-a-float bound, its twin and torch._fused_adam_.
+     This phase and the next run after the timed paths, so that their
      profiler sessions and allocations do not reach the timed steps;
  12. the lab: E1 and E2 (every variant of exp/lab_rowmajor.py) against
      their twins at 1e-5 of max|twin|, E1 also at one chunk a program
@@ -225,11 +234,13 @@ KERNELS = {
                    replaces="exp/lab_rowmajor.py:105"),
     "lab_rm": dict(id="E2", source="adgs_tpu_torch/csrc/lab_rowmajor.cu",
                    replaces="exp/lab_rowmajor.py:128"),
+    "adam": dict(id="A1", source="adgs_tpu_torch/csrc/adam.cu",
+                 replaces="none (XLA fuses adgs_tpu/train/optim.py:121)"),
 }
 SERVING_KERNELS = ("compact_live", "expand", "composite_fwd", "grid_sample")
 TRAINING_KERNELS = ("compact_live", "expand", "composite_fwd",
                     "composite_bwd", "segment_sum", "grid_sample",
-                    "grid_sample_bwd")
+                    "grid_sample_bwd", "adam")
 LAB_KERNELS = ("lab_cm", "lab_rm")
 # the cli.render phase's scene: the two poses, 5 timestamps each (frame 4
 # of each camera is nvs-75's test frame)
@@ -2308,6 +2319,236 @@ def check_launched(path, launches, names) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 11b. Adam: adam_update_kernel (csrc/adam.cu) bitwise its plain twin
+# ---------------------------------------------------------------------------
+# The train cells' padded leaves: port_bench/scene.py sizes(spec, 2) of
+# each configuration (1,000,000 Gaussians, 30% object, capacities doubled
+# by the first densify), SH degree 3, the 3 x ENV_RES^2 sky.
+ADAM_CAPACITY = (1_400_832, 606_208)          # scene, object slots
+ADAM_CONFIGS = (("kitti-75", 52, True), ("waymo", 100, False))
+ADAM_ODD = (0, 1, 3, 5, 4097, 16385, 3 * 16384 + 2)   # floats of odd leaves
+ADAM_STEPS = 3
+ADAM_START = 5250         # the train cells' first iteration
+ADAM_DEAD = 0.3           # share of each Gaussian block's slots left dead
+ADAM_OPS = 13             # f32 operations an element (csrc/adam.cu)
+
+
+def adam_leaf_shapes(frame_num: int, background: bool) -> list:
+    """leaves() shapes of a configuration's model: order_args xyz [None, 5,
+    0, 6, 0, 0], rotation [0, 0, 0, 0, None, 5], shs [0, 0, 0, 6, 0, 0],
+    background as xyz or all zero (the reader fills None with frame_num //
+    3)."""
+    third = frame_num // 3
+    c_xyz, c_rot, c_shs = third + 12, third, 12
+    c_bg = third + 12 if background else 0
+    ns, no = ADAM_CAPACITY
+    block = lambda n: [(n, 3), (n, 1, 3), (n, 15, 3), (n, 3), (n, 4),
+                       (n, 1), (n, 3, c_shs)]
+    return (block(ns) + block(no)
+            + [(no, 3, c_xyz), (no, 4, c_rot), (no, 2), (1, 3, c_bg),
+               (3, ENV_RES, ENV_RES)])
+
+
+def adam_dead(x):
+    """x with the rows of its dead slots zeroed: the last ADAM_DEAD of a
+    Gaussian leaf's first axis (not of the sky's three channels)."""
+    if x.dim() > 1 and x.shape[0] in ADAM_CAPACITY:
+        x[int(x.shape[0] * (1 - ADAM_DEAD)):] = 0.0
+    return x
+
+
+def adam_inputs(gen, dev, shapes):
+    """Random p, m, v (v >= 0) of the shapes, the moments zero on the dead
+    slots."""
+    import torch
+    ps = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    ms = [adam_dead(1e-2 * torch.randn(s, generator=gen, device=dev))
+          for s in shapes]
+    vs = [adam_dead(1e-4 * torch.randn(s, generator=gen, device=dev) ** 2)
+          for s in shapes]
+    return ps, ms, vs
+
+
+def adam_grads(gen, dev, shapes):
+    """N(0, 1e-2) gradients, zero on the dead slots, a few exact zeros and
+    subnormals among the live ones."""
+    import torch
+    out = []
+    for s in shapes:
+        g = adam_dead(1e-2 * torch.randn(s, generator=gen, device=dev))
+        flat = g.view(-1)
+        flat[::1009] = 0.0
+        flat[7::2003] = 1e-40
+        out.append(g)
+    return out
+
+
+def adam_chain(what, gen, dev, ps, ms, vs, lrs, steps=ADAM_STEPS,
+               count0=ADAM_START):
+    """`steps` Adam steps of the kernel (under the sync debug mode's
+    "error": no synchronize) and of its plain twin, each from its own
+    previous outputs, on fresh gradients a step: p', m', v' bitwise equal
+    after every step. Returns the last step's inputs."""
+    import torch
+    from adgs_tpu_torch import _kernels
+    from adgs_tpu_torch.train import optim as topt
+    shapes = [tuple(p.shape) for p in ps]
+    count = torch.tensor(count0, dtype=torch.int32)
+    kern = twin = (ps, ms, vs)
+    for i in range(steps):
+        gs = adam_grads(gen, dev, shapes)
+        count, bc1, bc2 = topt.next_count(count)
+        before = _kernels.launches["adam"]
+        kern_in = kern
+        # the launch reads no value back from the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kern = topt.adam_leaves(kern[0], gs, kern[1], kern[2], lrs, bc1,
+                                    bc2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        twin = topt.adam_leaves_torch(twin[0], gs, twin[1], twin[2], lrs,
+                                      bc1, bc2)
+        torch.cuda.synchronize()
+        launched = _kernels.launches["adam"] - before
+        want = 1 if sum(p.numel() for p in ps) else 0
+        if launched != want:
+            raise AssertionError(f"{what}: {launched} launches, not {want}")
+        check_bitwise(f"A1 {what}, step {i + 1} (count {int(count)}): "
+                      "p', m', v' vs the twin", tuple(sum(kern, [])),
+                      tuple(sum(twin, [])))
+    return kern_in[0], gs, kern_in[1], kern_in[2], bc1, bc2
+
+
+def adam_phase(dev, seed: int, real=None) -> dict:
+    """A1 at both train configurations' leaf shapes, on odd and empty
+    leaves, an unaligned leaf and the sharded slices, each over
+    ADAM_STEPS steps bitwise its twin; `real` = (trainables, grads,
+    opt_state) of a training step: that step's update bitwise the twin's,
+    and which of its leaves run one float at a time. Times at the KITTI
+    shapes: the kernel (CUDA events, device), its byte bound, the twin,
+    and torch._fused_adam_ (one learning rate; a yardstick the port never
+    calls)."""
+    import torch
+    from adgs_tpu_torch.train import optim as topt
+    from adgs_tpu_torch.train.config import OptimizationConfig
+    from adgs_tpu_torch.parallel.shard import _shard_axis
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    lrs = topt.leaves(topt.lr_tree(OptimizationConfig(), SCENE_EXTENT,
+                                   CAMERAS_EXTENT, ADAM_START))
+    if real is not None:
+        tr, grads, st = real
+        ps, gs = topt.leaves(tr), topt.leaves(grads)
+        ms, vs = topt.leaves(st.m), topt.leaves(st.v)
+        # the outputs are fresh, so an input off 16 bytes decides
+        alone = [i for i, grp in enumerate(zip(ps, gs, ms, vs))
+                 if any(t.data_ptr() % 16 for t in grp)]
+        log(f"# A1 on a training step: {len(ps)} leaves, "
+            f"{sum(p.numel() for p in ps)} floats; leaves one float at a "
+            f"time: {alone}")
+        _, bc1, bc2 = topt.next_count(st.count)
+        check_bitwise("A1 on the training step's gradients vs the twin",
+                      tuple(sum(topt.adam_leaves(ps, gs, ms, vs, lrs, bc1,
+                                                 bc2), [])),
+                      tuple(sum(topt.adam_leaves_torch(ps, gs, ms, vs, lrs,
+                                                       bc1, bc2), [])))
+        del tr, grads, st, ps, gs, ms, vs
+    rec = None
+    for name, frame_num, background in ADAM_CONFIGS:
+        shapes = adam_leaf_shapes(frame_num, background)
+        ps, ms, vs = adam_inputs(gen, dev, shapes)
+        n = sum(p.numel() for p in ps)
+        log(f"# A1 at {name}'s leaves: {len(shapes)} leaves, {n} floats "
+            f"(sky {shapes[-1]}, background_deform {shapes[17]})")
+        # KITTI from the cells' step count, Waymo from Adam's first step
+        # (bias corrections far from 1)
+        p, g, m, v, bc1, bc2 = adam_chain(
+            name, gen, dev, ps, ms, vs, lrs,
+            count0=ADAM_START if rec is None else 0)
+        if rec is None:
+            # the sharded update's slices (rank 1 of 2), made contiguous as
+            # sharded_adam_update makes them, bitwise the full update's
+            full = topt.adam_leaves(p, g, m, v, lrs, bc1, bc2)
+            for i in (0, len(p) - 1):
+                ax = _shard_axis(p[i], 2)
+                per = p[i].shape[ax] // 2
+
+                def part(x):
+                    return x.narrow(ax, per, per).contiguous()
+
+                got = topt.adam_leaves([part(p[i])], [part(g[i])],
+                                       [part(m[i])], [part(v[i])],
+                                       [lrs[i]], bc1, bc2)
+                twin = topt.adam_leaves_torch(
+                    [part(p[i])], [part(g[i])], [part(m[i])], [part(v[i])],
+                    [lrs[i]], bc1, bc2)
+                check_bitwise(f"A1 sharded slice of leaf {i} {shapes[i]} "
+                              f"(axis {ax}) vs the twin and the full update",
+                              tuple(sum(got, []) + sum(got, [])),
+                              tuple(sum(twin, [])
+                                    + [part(o[i]) for o in full]))
+            del full
+
+            def kernel():
+                return topt.adam_leaves(p, g, m, v, lrs, bc1, bc2)
+
+            def plain():
+                return topt.adam_leaves_torch(p, g, m, v, lrs, bc1, bc2)
+
+            t = times(kernel, 10)
+            plain_ms = cuda_ms(plain, iters=3)
+            rec = dict(kernel="adam", max_abs_err=0.0, plain_ms=plain_ms,
+                       bytes=28 * n, flops=ADAM_OPS * n,
+                       use=f"{name}: 19 leaves, {n} floats", **t)
+            lib = adam_library(p, g, m, v)
+            if lib is not None:
+                rec.update(library_ms=cuda_ms(lib, iters=10),
+                           library_device_ms=device_ms(lib))
+            log(f"# A1 {name}: card {rec['ms']:.4f} ms, device "
+                f"{fmt_ms(rec['device_ms'])}, bound "
+                f"{28 * n / HBM_BYTES_S * 1e3:.4f} (28 B a float at 3.35 "
+                f"TB/s), plain {plain_ms:.4f}, torch._fused_adam_ "
+                f"{fmt_ms(rec['library_ms'])} (device "
+                f"{fmt_ms(rec['library_device_ms'])})")
+        del ps, ms, vs, p, g, m, v
+        torch.cuda.empty_cache()
+
+    # odd and empty leaves, and unaligned ones (one float at a time)
+    shapes = [(k,) for k in ADAM_ODD]
+    ps, ms, vs = adam_inputs(gen, dev, shapes)
+    base = [torch.randn(4100, generator=gen, device=dev) for _ in range(3)]
+    base[1].mul_(1e-2)
+    base[2].pow_(2).mul_(1e-4)
+    ps.append(base[0][1:])     # p and v 4 bytes off 16: no float4 body
+    ms.append(base[1][:4099])
+    vs.append(base[2][1:])
+    adam_chain("odd and empty leaves, one unaligned", gen, dev, ps, ms, vs,
+               lrs[:len(ps)], count0=0)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def adam_library(p, g, m, v):
+    """torch._fused_adam_ over the same leaves (in place on copies, one
+    learning rate, eps inside its own formula): a yardstick of what one
+    PyTorch call takes, or None where this PyTorch has none."""
+    import torch
+    fused = getattr(torch, "_fused_adam_", None)
+    if fused is None:
+        log("  (torch._fused_adam_ is not in this PyTorch)")
+        return None
+    pc, mc, vc = ([x.clone() for x in xs] for xs in (p, m, v))
+    steps = [torch.ones((), device=x.device) for x in p]
+
+    def lib():
+        fused(pc, list(g), mc, vc, [], steps, lr=1e-3, beta1=0.9,
+              beta2=0.999, weight_decay=0.0, eps=1e-15, amsgrad=False,
+              maximize=False)
+
+    return lib
+
+
+# ---------------------------------------------------------------------------
 # 14. scene preparation: a street of known geometry written as a raw
 # KITTI-MOT tracking layout and as a Waymo segment, prepared by the port's
 # scripts on the card (each stage held to the port's CPU run on the same
@@ -4120,6 +4361,9 @@ def run(dev, seed: int, card: str = "no card") -> list:
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"# trained {len(logs)} steps; launches {launches}")
     check_launched("training", launches, TRAINING_KERNELS)
+    if launches["adam"] != len(logs):
+        raise AssertionError(f"A1: {launches['adam']} launches in "
+                             f"{len(logs)} training steps")
     check_train_logs(logs, capacity)
     log("# losses per step: " + json.dumps(
         [round(float(lg["total_loss"]), 6) for lg in logs]) + "; last "
@@ -4165,6 +4409,11 @@ def run(dev, seed: int, card: str = "no card") -> list:
     backward_kernel_phase(rec, cfg, params, train_state, env, rays,
                           train_cam, batch, capacity, seed)
     segment_sum_cases(dev, seed)
+    # 11b. Adam (A1) on a step's gradients and at the train cells' shapes
+    lg = step.loss_and_grads(params, env, train_state, train_cam, batch, rays)
+    rec["adam"] = adam_phase(dev, seed, real=(TrainableState(params, env),
+                                              lg.grads, start[2]))
+    del lg
 
     # 12. the lab (E1, E2)
     log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
