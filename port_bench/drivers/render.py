@@ -76,14 +76,23 @@ def run(run):
     cams = [Camera.create(R=v.R, T=v.T, fovx=v.fovx, fovy=v.fovy,
                           width=v.width, height=v.height, time=v.time,
                           device=dev) for v in views]
-    rays = torch.as_tensor(camera_rays(cams[0].focal_x, cams[0].height,
-                                       cams[0].width),
-                           dtype=torch.float32, device=dev)
-    nr = max(int(compute_binning(c, params, state, cfg, capacity=1 << 10)
-                 .num_rendered) for c in cams)
+    # each camera's sky rays, as cli.render keys them by cam_id
+    rays = {}
+    by_cam = {}
+    for v, c in zip(views, cams):
+        if v.cam_id not in rays:
+            rays[v.cam_id] = torch.as_tensor(
+                camera_rays(c.focal_x, c.height, c.width),
+                dtype=torch.float32, device=dev)
+        nr = int(compute_binning(c, params, state, cfg, capacity=1 << 10)
+                 .num_rendered)
+        by_cam[v.cam_id] = max(by_cam.get(v.cam_id, 0), nr)
+    nr = max(by_cam.values())
     cap = scene.instance_capacity(nr)
     run.phase("cameras and capacity")
-    run.data.update(instance_capacity=cap, max_num_rendered=nr)
+    run.data.update(instance_capacity=cap, max_num_rendered=nr,
+                    max_num_rendered_by_camera=[by_cam[c]
+                                                for c in sorted(by_cam)])
     fn = make_staged_render_fn(cfg, active_sh_degree=int(spec["sh_degree"]),
                                capacity=cap)
     keep = set(sample(traffic, run.seed))
@@ -97,7 +106,8 @@ def run(run):
                          pin_memory=dev.type == "cuda") for _ in range(2)]
 
     def frame(i, marks=None):
-        out = fn(cams[i % len(cams)], params, state, env, rays,
+        k = i % len(cams)
+        out = fn(cams[k], params, state, env, rays[views[k].cam_id],
                  stage_marks=marks)
         host = hosts[i % 2]
         host.copy_(torch.clamp(out["render"], 0.0, 1.0))

@@ -267,7 +267,7 @@ def build_trainer(run, spec, traffic, w, train_views, test_views, frames):
         count=torch.tensor(start, dtype=torch.int32))
     tr.iteration = start
     tr.active_sh_degree = int(spec["sh_degree"])
-    nr = 0
+    by_cam = {}
     for i, (v, ((image, depth, sky, semantic), flows)) in enumerate(
             zip(train_views, frames)):
         cam = Camera.create(R=v.R, T=v.T, fovx=v.fovx, fovy=v.fovy,
@@ -276,11 +276,14 @@ def build_trainer(run, spec, traffic, w, train_views, test_views, frames):
         tr._frame_cache[("train", i)] = (
             cam, FrameBatch(image=image, depth=depth, sky=sky,
                             semantic=semantic), flows)
-        nr = max(nr, int(compute_binning(cam, params, state, tr.config,
-                                         capacity=1 << 10).num_rendered))
+        nr = int(compute_binning(cam, params, state, tr.config,
+                                 capacity=1 << 10).num_rendered)
+        by_cam[v.cam_id] = max(by_cam.get(v.cam_id, 0), nr)
+    nr = max(by_cam.values())
     tr.capacity = scene.instance_capacity(nr)
-    run.data["instance_capacity"] = tr.capacity
-    run.data["max_num_rendered"] = nr
+    run.data.update(instance_capacity=tr.capacity, max_num_rendered=nr,
+                    max_num_rendered_by_camera=[by_cam[c]
+                                                for c in sorted(by_cam)])
     return tr
 
 

@@ -195,7 +195,8 @@ def main(argv, t_start: float) -> int:
               file=sys.stderr)
     print("set-up phases (s since start): " + ", ".join(
         f"{n} {t:.3f}" for n, t in run.phases), file=sys.stderr)
-    for key in ("instance_capacity", "max_num_rendered", "window_steps",
+    for key in ("instance_capacity", "max_num_rendered",
+                "max_num_rendered_by_camera", "window_steps",
                 "window_refreshes", "window_densifies", "window_frames",
                 "first_window_iteration", "window_halves_ms",
                 "compared_frames", "reference_s"):

@@ -42,20 +42,20 @@ def _render(spec, traffic, seed, dev, views):
         spec["order_args"], scene.scene_frame_num(spec), 3,
         sh_degree=int(spec["sh_degree"]), use_time_mask=True)
     out = []
-    rays = None
+    rays = {}
     for v in views:
         cam = Camera.create(R=v.R, T=v.T, fovx=v.fovx, fovy=v.fovy,
                             width=v.width, height=v.height, time=v.time,
                             device=dev)
-        if rays is None:
-            rays = torch.as_tensor(camera_rays(cam.focal_x, cam.height,
-                                               cam.width),
-                                   dtype=torch.float32, device=dev)
+        if v.cam_id not in rays:
+            rays[v.cam_id] = torch.as_tensor(
+                camera_rays(cam.focal_x, cam.height, cam.width),
+                dtype=torch.float32, device=dev)
         nr = int(compute_binning(cam, params, state, cfg, capacity=1 << 10,
                                  backend="torch").num_rendered)
         fn = make_staged_render_fn(
             cfg, active_sh_degree=int(spec["sh_degree"]), backend="torch",
             capacity=scene.instance_capacity(nr))
-        img = fn(cam, params, state, env, rays)["render"]
+        img = fn(cam, params, state, env, rays[v.cam_id])["render"]
         out.append(torch.clamp(img, 0.0, 1.0).cpu())
     return out

@@ -6,12 +6,44 @@ program and to the plain reference. Weights and frames are drawn on the
 device with one torch.Generator in a few large calls, in float32.
 
 The model follows bench.py's protocol at a configuration's published
-widths: N Gaussians, a share of them object Gaussians, positions
-x ~ U(-2, 6), y, z ~ N(0, 4) in front of a camera at x = -8 looking along
-+x, isotropic log-scales from the expected 3-NN spacing of that cloud,
-shrunk by log(0.3) (the instance density of a trained scene). The other
-leaves are drawn so that a trained model's work is done: SH of degree 3,
-opacities spread about logit(0.12), object trajectories and time masks.
+widths: N Gaussians, a share of them object Gaussians, isotropic
+log-scales from the expected 3-NN spacing of the cloud, shrunk by
+log(0.3) (the instance density of a trained scene). The other leaves are
+drawn so that a trained model's work is done: SH of degree 3, opacities
+spread about logit(0.12), object trajectories and time masks.
+
+World axes: x forward along the drive, y to the left, z up. The rig's
+origin drives along +x from x = -8, `drive_per_timestamp` a timestamp.
+
+The cloud (the configuration's `cloud`, CLOUDS) is one law,
+x ~ U(x0, x0 + length), y ~ N(0, sigma_y), z ~ N(0, sigma_z), from one
+uniform and two normals a Gaussian; its density at a point is
+rho = N / length * exp(-(y / sigma_y)^2 / 2 - (z / sigma_z)^2 / 2)
+/ (2 pi sigma_y sigma_z), and _log_spacing turns rho into the log of the
+expected 3-NN spacing of a Poisson cloud of that density:
+
+- "forward" (the default): x ~ U(-2, 6), y, z ~ N(0, 4), a block ahead of
+  the rig's start that a forward camera looks into. scene_extent (the
+  bounding box's diagonal) lands at about 54 with 1M Gaussians, set by
+  the normals' extremes in y and z (about +-4.9 sigma).
+- "surround": x ~ U(-8, 8), y ~ N(0, 8), z ~ N(0, 4), a band twice as
+  wide as it is tall along the drive from the rig's start, reaching to
+  both sides of it: a camera turned 55 degrees to the side renders about
+  as many instances as the forward one, as on a street lined with
+  buildings. scene_extent lands at about 90 with 1M Gaussians.
+
+cameras_extent (1.1 x the largest distance of a training camera's centre
+from their mean) lands at 0.90 (kitti-75), 1.09 (waymo) and 1.17 (a
+three-camera nuScenes rig over 60 timestamps): slow drives, rigs under
+two metres across. So the configuration's min_camera_extent (5 or 10)
+is what training uses, in both layouts.
+
+The rig (the configuration's `rig`, see rig()): cameras with a yaw, an
+offset from the rig's origin and intrinsics each, all at the
+configuration's width x height, as the port's reader gives a multi-camera
+scene (each K as its own FoVs, every image at its file's size).
+Without `rig`, `num_cam` cameras face forward `baseline` apart to the
+right at `focal`, the principal point at the centre.
 """
 
 from __future__ import annotations
@@ -129,13 +161,27 @@ LEAVES = ("scene_xyz", "scene_shs_dc", "scene_shs_rest", "scene_scaling",
           "rotation_deform", "gs_time_sigma", "background_deform")
 
 
-def _log_spacing(xyz: torch.Tensor, n_total: int) -> torch.Tensor:
+class Cloud(NamedTuple):
+    """x ~ U(x0, x0 + length), y ~ N(0, sigma_y), z ~ N(0, sigma_z)."""
+    x0: float
+    length: float
+    sigma_y: float
+    sigma_z: float
+
+
+CLOUDS = {"forward": Cloud(-2.0, 8.0, 4.0, 4.0),
+          "surround": Cloud(-8.0, 16.0, 8.0, 4.0)}
+
+
+def _log_spacing(xyz: torch.Tensor, n_total: int, law: Cloud) -> torch.Tensor:
     """0.5 log of the expected mean 3-NN squared distance at each point of
-    the cloud x ~ U(-2, 6), y, z ~ N(0, 4) of n_total points."""
-    sigma = 4.0
-    pdf = torch.exp(-(xyz[:, 1] ** 2 + xyz[:, 2] ** 2) / (2 * sigma ** 2)) \
-        / (2 * math.pi * sigma ** 2)
-    rho = n_total / 8.0 * pdf
+    the cloud `law` of n_total points (its density rho at the point).
+    The sigmas are powers of two, so dividing by them first rounds as
+    (y^2 + z^2) / (2 sigma^2) would."""
+    pdf = torch.exp(-((xyz[:, 1] / law.sigma_y) ** 2
+                      + (xyz[:, 2] / law.sigma_z) ** 2) / 2) \
+        / (2 * math.pi * law.sigma_y * law.sigma_z)
+    rho = n_total / law.length * pdf
     d2 = KNN3_FACTOR * (4.0 * math.pi * rho / 3.0) ** (-2.0 / 3.0)
     return 0.5 * torch.log(torch.clamp(d2, min=1e-7))
 
@@ -173,9 +219,11 @@ def make_weights(spec: dict, seed: int, device,
         return out
 
     N, U = cut(normal, layout_n), cut(uniform, layout_u)
-    xyz = torch.stack([U["x"] * 8.0 - 2.0,
-                       N["xyz_yz"][:n] * 4.0, N["xyz_yz"][n:] * 4.0], 1)
-    log_s = (_log_spacing(xyz, n)[:, None] + math.log(0.3)
+    law = CLOUDS[spec.get("cloud", "forward")]
+    xyz = torch.stack([U["x"] * law.length + law.x0,
+                       N["xyz_yz"][:n] * law.sigma_y,
+                       N["xyz_yz"][n:] * law.sigma_z], 1)
+    log_s = (_log_spacing(xyz, n, law)[:, None] + math.log(0.3)
              + 0.2 * N["scale"].view(n, 3))
     dc = ((U["rgb"].view(n, 3) - 0.5) / SH_C0)[:, None, :]
     rest = 0.02 * N["shs_rest"].view(n, K - 1, 3)
@@ -240,27 +288,66 @@ class View(NamedTuple):
     is_test: bool
 
 
+def rig(spec: dict) -> list:
+    """The rig's cameras in reader order (cam_id), each a dict of
+    `yaw_deg` (about the vertical axis, + to the left, 0 forward),
+    `forward` and `left` (its offset from the rig's origin) and `fx`,
+    `fy`, `cx`, `cy` (pixels on the configuration's width x height): the
+    configuration's `rig`, or `num_cam` forward cameras `baseline` apart
+    to the right at `focal`, the principal point at the centre."""
+    n_cam = int(spec["num_cam"])
+    if "rig" in spec:
+        if len(spec["rig"]) != n_cam:
+            raise ValueError(f"{len(spec['rig'])} rig cameras for num_cam "
+                             f"{n_cam}")
+        return spec["rig"]
+    w, h, f = int(spec["width"]), int(spec["height"]), float(spec["focal"])
+    return [dict(yaw_deg=0.0, forward=0.0, left=-float(spec["baseline"]) * c,
+                 fx=f, fy=f, cx=w / 2, cy=h / 2) for c in range(n_cam)]
+
+
+def _focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
+def yawed(yaw_deg: float) -> np.ndarray:
+    """World->camera rotation of a camera turned by yaw_deg from HORIZON
+    about the vertical axis (+ to the left); HORIZON itself at 0."""
+    a = math.radians(yaw_deg)
+    c, s = math.cos(a), math.sin(a)
+    turn = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    return HORIZON @ turn.T
+
+
+def intrinsics(cam: dict) -> np.ndarray:
+    """The camera's 3x3 K, as a flow package carries it."""
+    return np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]],
+                     [0, 0, 1]], np.float32)
+
+
 def views(spec: dict) -> list:
     """The scene's images in reader order (timestamp-major, camera-minor):
-    cameras drive along +x from x = -8, `drive_per_timestamp` a step; the
-    second camera of a stereo pair sits `baseline` to the right. The test
-    split is every `test_every`-th timestamp from the `test_every`-th, as
-    the reader's get_val_frames has it."""
-    w, h, f = int(spec["width"]), int(spec["height"]), float(spec["focal"])
-    fovx = 2 * math.atan(w / (2 * f))
-    fovy = 2 * math.atan(h / (2 * f))
-    n_t, n_cam = int(spec["timestamps"]), int(spec["num_cam"])
+    the rig's origin drives along +x from x = -8, `drive_per_timestamp` a
+    timestamp, each camera at its offset from it, turned by its yaw, with
+    fovx = focal2fov(fx, 2 cx), fovy = focal2fov(fy, 2 cy) as the port's
+    reader turns a K into FoVs, at the configuration's width x height.
+    The test split is every `test_every`-th timestamp from the
+    `test_every`-th, as the reader's get_val_frames has it."""
+    w, h = int(spec["width"]), int(spec["height"])
+    cams = [(yawed(float(c["yaw_deg"])), float(c["forward"]),
+             float(c["left"]), _focal2fov(float(c["fx"]), 2 * c["cx"]),
+             _focal2fov(float(c["fy"]), 2 * c["cy"])) for c in rig(spec)]
+    n_t = int(spec["timestamps"])
     every = int(spec["test_every"])
     test = set(range(every, n_t, every))
     out = []
     for i in range(n_t):
         d = float(spec["drive_per_timestamp"]) * i
-        for c in range(n_cam):
-            centre = np.array([-8.0 + d, -float(spec["baseline"]) * c, 0.0])
-            out.append(View(uid=len(out), cam_id=c, R=HORIZON,
-                            T=-HORIZON @ centre, fovx=fovx, fovy=fovy,
-                            width=w, height=h, time=i / max(n_t - 1, 1),
-                            is_test=i in test))
+        for c, (R, forward, left, fovx, fovy) in enumerate(cams):
+            centre = np.array([-8.0 + d + forward, left, 0.0])
+            out.append(View(uid=len(out), cam_id=c, R=R, T=-R @ centre,
+                            fovx=fovx, fovy=fovy, width=w, height=h,
+                            time=i / max(n_t - 1, 1), is_test=i in test))
     return out
 
 
@@ -290,13 +377,13 @@ def make_frames(spec: dict, seed: int, device, train_views: list,
     sky mask [H,W], object mask [H,W]) on `device`, and its flow
     packages on the host as the reader gives them: [time, K, R, T,
     flow [2,H,W] (target pixel coords), vis [H,W]] in numpy, for the
-    views `flow_per_frame` timestamps around it. Drawn with a generator
-    seeded with seed + 1, frame by frame in view order. With `keep` (a set
-    of indices), the other frames are drawn and dropped (None)."""
+    views of its camera `flow_per_frame` timestamps around it, each with
+    that camera's K. Drawn with a generator seeded with seed + 1, frame by
+    frame in view order. With `keep` (a set of indices), the other frames
+    are drawn and dropped (None)."""
     gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
     h, w = int(spec["height"]), int(spec["width"])
-    f = float(spec["focal"])
-    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    Ks = [intrinsics(c) for c in rig(spec)]
     rows = torch.arange(h, device=device, dtype=torch.float32)
     cols = torch.arange(w, device=device, dtype=torch.float32)
     gy, gx = torch.meshgrid(rows, cols, indexing="ij")
@@ -323,7 +410,7 @@ def make_frames(spec: dict, seed: int, device, train_views: list,
             vis = (d[2] < 0.5).float()
             if keep is not None and i not in keep:
                 continue
-            flows.append([np.float32(nb.time), K.copy(),
+            flows.append([np.float32(nb.time), Ks[nb.cam_id].copy(),
                           nb.R.astype(np.float32),
                           nb.T.astype(np.float32),
                           flow.cpu().numpy(), vis.cpu().numpy()])

@@ -3,14 +3,16 @@ have, planted underneath the timed path at the toy size
 (port_bench/faults.py): a training step that returns its state
 unchanged, one that returns the statistics densify reads unchanged, a
 step whose losses leave out half the frame's pixels (the mean over the
-rest), a served image altered where it is produced."""
+rest), a served image altered where it is produced; on the committed
+cells and on the three-camera rig (conftest.py RIG)."""
 
 import pytest
 
 from conftest import toy_run
 
 
-@pytest.mark.parametrize("workload", ("kitti75-train", "waymo-train"))
+@pytest.mark.parametrize("workload", ("kitti75-train", "waymo-train",
+                                      "rig-train"))
 @pytest.mark.parametrize("fault", ("unchanged_state", "frozen_statistics",
                                    "half_batch"))
 def test_train_fault_is_not_correct(fault, workload):
@@ -21,7 +23,8 @@ def test_train_fault_is_not_correct(fault, workload):
     assert [n for n, v, lim in run.checks if not v <= lim]
 
 
-@pytest.mark.parametrize("workload", ("kitti75-render", "waymo-render"))
+@pytest.mark.parametrize("workload", ("kitti75-render", "waymo-render",
+                                      "rig-render"))
 def test_render_altered_answer_is_not_correct(workload):
     from port_bench.faults import planted
     with planted("altered_answer"):
