@@ -801,15 +801,22 @@ def make_sharded_train_step(
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(inputs + [so], grads)]
         grads = allreduce_flat(grads)
-        flags = torch.stack([nrend.reshape(()).to(torch.int32),
-                             exo.to(torch.int32)])
+        # each rank's slab count in a slot of its own, so that one max
+        # over the ranks gives the largest slab's and every slab's
+        flags = torch.zeros(mesh.size + 1, dtype=torch.int32, device=dev)
+        flags[mesh.rank] = nrend.reshape(()).to(torch.int32)
+        flags[-1] = exo.to(torch.int32)
         flags = cc.pmax(flags, dist.group.WORLD)
         logs = {k: v.detach() for k, v in logs.items()}
-        logs["exchange_overflow"] = flags[1] > 0
+        logs["exchange_overflow"] = flags[-1] > 0
+        if loss_mode == "slab":
+            # the step's splat instances: every camera's slabs (the
+            # gathered path's counts are already the largest slab's)
+            logs["splat_instances"] = flags[:-1].sum()
         return LossAndGrads(
             logs=logs, grads=from_leaves(trainables, grads[:-1]),
             screen_grad=grads[-1], radii=radii, visibility=vis,
-            num_rendered=flags[0])
+            num_rendered=flags[:-1].max())
 
     @torch.no_grad()
     def update(params, env, opt_state, state, out: LossAndGrads, iteration):

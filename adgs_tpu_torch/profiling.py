@@ -34,7 +34,12 @@ does nothing when none records). The program counts:
   - "host_syncs": the points at which the host waits for the card: reads
     of a device value on the host, and host-to-device copies from
     pageable memory, which PyTorch ends in a stream synchronize (counted
-    at the same code points on any device).
+    at the same code points on any device);
+  - "splat_instances": the (Gaussian, tile) instances a training step
+    rendered, its num_rendered, which the trainer reads for its overflow
+    guard anyway (on a mesh, the sum over the step's cameras and slabs):
+    the count that sizes the expansion, compositing and reduction
+    kernels. Counted on the host value, so it adds no read.
 
 The store keeps the last `MAX_ROOTS` roots; `reset()` clears it, and
 `summary()` reduces it to per-root means. One store serves the process,

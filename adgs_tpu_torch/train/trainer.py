@@ -15,7 +15,9 @@ seeded with `seed`, in place of the JAX trainer's PRNG key: the device
 KNN refresh's anchors and the split's draws).
 
 The hot loop reads two values from the card each step, as the JAX
-trainer does: the loss and num_rendered (for the overflow guard).
+trainer does: the loss and num_rendered (for the overflow guard; on a
+mesh it comes in one copy with the step's splat instances, the sum over
+its cameras' slabs).
 
 Multi-device training (devices > 1 or batch_cameras > 1) runs one
 trainer per rank of a joined process group (parallel/mesh.py; cli.train
@@ -513,8 +515,17 @@ class Trainer:
                             active_sh_degree=self.active_sh_degree)
                     with span("trainer.read"):
                         loss = float(logs["total_loss"])  # waits for it
-                        num_rendered = int(logs["num_rendered"])
+                        if "splat_instances" in logs:
+                            # a mesh step: the largest slab's count and
+                            # the sum over the step's cameras, one copy
+                            num_rendered, instances = torch.stack(
+                                [logs["num_rendered"],
+                                 logs["splat_instances"]]).tolist()
+                        else:
+                            num_rendered = instances = int(
+                                logs["num_rendered"])
                         count("host_syncs", 2)
+                        count("splat_instances", instances)
                 except Exception:
                     path = self._dump_failure_snapshot(it, fidx)
                     print(f"[debug] step {it} raised; repro state dumped to "

@@ -7,7 +7,8 @@ exchange capacity of 8 rows a pair overflows and grows, and so does the
 instance capacity; every densify's fingerprint check finds both ranks'
 models bitwise equal; only rank 0 writes (one metrics line per logged
 step, one checkpoint); cli.render of the checkpoint (one device) gives
-the PSNR that rank 0's evaluation logged. And scripts/bench_scaling.py
+the PSNR that rank 0's evaluation logged; the logged splat instances, both slabs'
+sum, lie between the larger slab's count and twice it. And scripts/bench_scaling.py
 on one and two CPU ranks."""
 
 import json
@@ -60,6 +61,11 @@ def test_cli_train_two_ranks(tmp_path, monkeypatch, capfd):
     train = [r for r in recs if "total_loss" in r]
     assert [r["step"] for r in train] == [10], train     # rank 0's only
     assert all(np.isfinite(r["total_loss"]) for r in train)
+    # the step's splat instances add up both slabs; num_rendered is the
+    # larger slab's (what sizes each rank's instance capacity)
+    for r in train:
+        assert r["num_rendered"] <= r["splat_instances"] \
+            <= 2 * r["num_rendered"]
     psnr = {r["step"]: r["psnr"] for r in recs if r["split"] == "test"}
     assert list(psnr) == [12]
     assert sorted(os.listdir(os.path.join(out, "point_cloud"))) == [

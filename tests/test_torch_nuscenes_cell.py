@@ -1,0 +1,221 @@
+"""The committed `nuscenes-train` cell (port_bench/workloads/nuscenes-train.json
+on port_bench/configs/nuscenes.json: three cameras yawed 0, +55 and -55
+degrees, each with its own K, over the surround cloud) at the benchmark
+tests' toy size (port_bench/tests/conftest.py TOY_SPEC, the rig's fx and
+cx scaled with the width, fy and cy with the height) on the CPU:
+
+  - driven through the harness's own functions, it reads `correct`, sizes
+    an instance capacity from three cameras' num_rendered, and its window
+    draws every camera;
+  - each camera's first training frame, one step from the benchmark's
+    model: the port's step and the frozen plain reference's agree on the
+    loss and the render within the cell's limits."""
+
+import dataclasses
+import importlib.util
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CELL = "nuscenes-train"
+SEED = 4_190_000_019
+
+
+def _toy():
+    """port_bench/tests/conftest.py as a module of its own name (this
+    suite has a conftest of its own)."""
+    spec = importlib.util.spec_from_file_location(
+        "port_bench_toy", os.path.join(ROOT, "port_bench", "tests",
+                                       "conftest.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def toy():
+    return _toy()
+
+
+@pytest.fixture(scope="module")
+def cell_run(toy):
+    """The toy run and the camera of every frame the trainer picked, by
+    iteration. The window is long and the run keeps to two threads, so
+    that a step slowed by other test processes on the same cores still
+    ends inside it."""
+    from adgs_tpu_torch.train import trainer as trainer_mod
+    picks = {}
+    real = trainer_mod.Trainer._frames_for_step
+
+    def counted(self, chosen, opt):
+        picks[self.iteration] = [self.scene.train_frames[i].cam_id
+                                 for i in chosen]
+        return real(self, chosen, opt)
+
+    threads = torch.get_num_threads()
+    trainer_mod.Trainer._frames_for_step = counted
+    torch.set_num_threads(min(threads, 2))
+    try:
+        run = toy.toy_run(CELL, seconds=8.0, seed=SEED)
+    finally:
+        torch.set_num_threads(threads)
+        trainer_mod.Trainer._frames_for_step = real
+    return run, picks
+
+
+def test_committed_cell_and_configuration(toy):
+    from port_bench import harness
+    cell, spec, traffic = harness.cell_files(CELL)
+    assert (cell["config"], cell["traffic"], cell["chips"]) == \
+        ("nuscenes", "train", 1)
+    assert spec["reduced"] == [] and spec["num_cam"] == 3
+    assert (spec["width"], spec["height"], spec["timestamps"]) == \
+        (1600, 900, 60)
+    assert [c["yaw_deg"] for c in spec["rig"]] == [0.0, 55.0, -55.0]
+    small = toy.toy_spec(spec)
+    for big, c in zip(spec["rig"], small["rig"]):
+        # the toy keeps each camera's FoVs
+        assert c["cx"] / c["fx"] == pytest.approx(big["cx"] / big["fx"])
+        assert c["cy"] / c["fy"] == pytest.approx(big["cy"] / big["fy"])
+
+
+def test_toy_run_is_correct_and_draws_every_camera(cell_run):
+    from port_bench import harness
+    run, picks = cell_run
+    line = harness.result_line(run)
+    assert line["correct"] is True, line["checks"]
+    assert set(line["checks"]) == set(run.cell["limits"])
+    by_cam = run.data["max_num_rendered_by_camera"]
+    assert len(by_cam) == 3 and min(by_cam) > 0
+    assert run.data["max_num_rendered"] == max(by_cam)
+    first, n = run.data["first_window_iteration"], run.data["window_steps"]
+    window = [c for it in range(first, first + n) for c in picks[it]]
+    assert len(window) == n > 0
+    assert set(window) == {0, 1, 2}
+
+
+def _program_step(spec, opt, frame_gap, scene_extent, cameras_extent, ref,
+                  view, frame, rays, it, dev):
+    """One step of the port's own (plain-tier) step on the reference's
+    model, frame and KNN groups; returns (loss, render)."""
+    from adgs_tpu_torch.core.camera import Camera
+    from adgs_tpu_torch.data.frames import flow_package
+    from adgs_tpu_torch.models.env_map import EnvironmentMap
+    from adgs_tpu_torch.models.gaussians import (GaussianConfig,
+                                                 GaussianParams,
+                                                 GaussianState)
+    from adgs_tpu_torch.render import compute_binning
+    from adgs_tpu_torch.train import step as step_mod
+    from adgs_tpu_torch.train.losses import FrameBatch
+    from adgs_tpu_torch.train.optim import TrainableState, init_adam
+    from port_bench import scene
+    from port_bench.capture import step_renders
+    params, state, env = ref
+
+    def fields(obj):
+        return {f.name: getattr(obj, f.name).clone()
+                for f in dataclasses.fields(obj)}
+
+    params = GaussianParams(**fields(params))
+    state = GaussianState(**fields(state))
+    env = EnvironmentMap(grid=env.grid.clone())
+    cfg = GaussianConfig.from_order_args(
+        spec["order_args"], int(round(1.0 / frame_gap)), 3,
+        sh_degree=int(spec["sh_degree"]), use_time_mask=opt.lambda_sigma > 0)
+    cam = Camera.create(R=view.R, T=view.T, fovx=view.fovx, fovy=view.fovy,
+                        width=view.width, height=view.height,
+                        time=view.time, device=dev)
+    (image, depth, sky, semantic), flows = frame
+    batch = FrameBatch(image=image, depth=depth, sky=sky, semantic=semantic)
+    batch = batch._replace(flow=flow_package(flows[0], device=dev),
+                           flow_valid=torch.tensor(True, device=dev))
+    nr = int(compute_binning(cam, params, state, cfg, capacity=1 << 10,
+                             backend="torch").num_rendered)
+    step = step_mod.make_train_step(
+        cfg, opt, frame_gap, scene_extent, cameras_extent, backend="torch",
+        capacity=scene.instance_capacity(nr))
+    opt_state = init_adam(TrainableState(params, env))._replace(
+        count=torch.tensor(it - 1, dtype=torch.int32))
+    images = []
+    with step_renders(step_mod, images, lambda: True):
+        out = step(params, env, opt_state, state, cam, batch, rays, it,
+                   active_sh_degree=int(spec["sh_degree"]))
+    return float(out[4]["total_loss"]), images[0]
+
+
+def test_each_cameras_first_step_matches_the_reference(toy):
+    """The first training frame of each camera (flow package 0), one step
+    from the benchmark's model at the start iteration, in the port and in
+    the frozen plain reference: loss_gap and image_gap as the judge
+    takes them, within the cell's limits."""
+    from port_bench import harness, scene
+    from port_bench.reference import train_ref
+    from port_bench.reference.plain.ops.knn import near_idx_device
+    from port_bench.reference.plain.train.config import OptimizationConfig
+    from port_bench.reference.plain.train.optim import (TrainableState,
+                                                        init_adam)
+    from port_bench.reference.plain.train import step as ref_step_mod
+    from port_bench.capture import step_renders
+    cell, full, traffic = harness.cell_files(CELL)
+    spec = toy.toy_spec(full)
+    traffic = dict(traffic, **toy.TOY_TRAFFIC["train"])
+    limits = cell["limits"]
+    dev = torch.device("cpu")
+    opt = scene.optimization(spec, OptimizationConfig)
+    params, state, env, w = train_ref.model(spec, traffic, SEED, dev)
+    views = scene.views(spec)
+    train_views = [v for v in views if not v.is_test]
+    frame_gap = float(spec["num_cam"]) / len(views)
+    scene_extent = scene.scene_extent(spec, w)
+    cameras_extent = max(scene.cameras_extent(train_views),
+                         opt.min_camera_extent)
+    cfg = train_ref.GaussianConfig.from_order_args(
+        spec["order_args"], int(round(1.0 / frame_gap)), 3,
+        sh_degree=int(spec["sh_degree"]), use_time_mask=opt.lambda_sigma > 0)
+    # the KNN groups of the trainer's first refresh (train_ref's draw),
+    # handed to both sides
+    K = opt.near_num
+    pts = params.obj_xyz
+    if cfg.use_time_mask:
+        pts = torch.cat([pts, state.gs_time[:, None] * scene_extent], 1)
+    r = torch.rand((pts.shape[0],),
+                   generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev)
+    idx, valid = near_idx_device(pts, state.obj_alive, r, K,
+                                 max(1, params.obj_capacity // K))
+    state = dataclasses.replace(state, obj_near_idx=idx,
+                                obj_near_valid=valid)
+    first = {}
+    for i, v in enumerate(train_views):
+        first.setdefault(v.cam_id, i)
+    assert sorted(first) == [0, 1, 2]
+    frames = scene.make_frames(spec, SEED, dev, train_views,
+                               int(traffic["flow_per_frame"]),
+                               keep=set(first.values()))
+    it = int(traffic["start_iteration"]) + 1
+    rays = {}
+    for cam_id, i in sorted(first.items()):
+        v = train_views[i]
+        images = []
+        # a step may update its inputs in place: each side its own copy
+        p, st = (dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).clone()
+            for f in dataclasses.fields(x)}) for x in (params, state))
+        e = dataclasses.replace(env, grid=env.grid.clone())
+        opt_state = init_adam(TrainableState(p, e))._replace(
+            count=torch.tensor(it - 1, dtype=torch.int32))
+        with step_renders(ref_step_mod, images, lambda: True):
+            out = train_ref._one_step(
+                spec, opt, cfg, frame_gap, scene_extent, cameras_extent, it,
+                v, frames[i], 0, rays, p, e, opt_state, st, dev)
+        ref_loss, ref_image = out[4], images[0]
+        loss, image = _program_step(
+            spec, opt, frame_gap, scene_extent, cameras_extent,
+            (params, state, env), v, frames[i], rays[cam_id], it, dev)
+        loss_gap = abs(loss - ref_loss) / abs(ref_loss)
+        image_gap = float((image.double() - ref_image.double()).abs().max())
+        assert image.shape == (3, spec["height"], spec["width"])
+        assert loss_gap <= limits["loss_gap"], (cam_id, loss_gap)
+        assert image_gap <= limits["image_gap"], (cam_id, image_gap)

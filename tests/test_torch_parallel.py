@@ -166,8 +166,16 @@ def _flat(tree):
 def test_sharded_step_matches_single_device(runs, ci):
     jout, (lg, pout) = runs["jout"], runs["single"]
     got = runs["ranks"][0][1][ci]
-    # logs against JAX (num_rendered is the largest slab's here)
-    assert set(got["logs"]) == set(jout[4]) | {"exchange_overflow"}
+    # logs against JAX (num_rendered is the largest slab's here); the slab
+    # path adds the step's splat instances, every slab's
+    extra = {"exchange_overflow"} | (
+        {"splat_instances"} if STEP_CASES[ci]["loss_mode"] == "slab"
+        else set())
+    assert set(got["logs"]) == set(jout[4]) | extra
+    if "splat_instances" in got["logs"]:
+        assert int(got["logs"]["num_rendered"]) <= \
+            int(got["logs"]["splat_instances"]) <= \
+            D * int(got["logs"]["num_rendered"])
     for k, v in jout[4].items():
         if k == "num_rendered":
             continue

@@ -9,6 +9,9 @@ on tests/test_torch_trainer.py's 64x48 synthetic KITTI scene:
     profiler's Chrome trace, on the same clock;
   - "h2d_bytes" of the frames is the flow packages' bytes, "host_syncs"
     of the reads is two;
+  - "splat_instances" of the reads is the step's num_rendered, read on
+    the host with no read of its own (the read span converts two tensors
+    to numbers, as before the counter), and nothing without a profiler;
   - the step's outputs and its marks' names are bitwise and letter for
     letter the same with tracing on and off;
   - summary()'s arithmetic on a hand-built store; --profile writes it to
@@ -84,6 +87,40 @@ def traced(tmp_path_factory):
         return packages[-1]
 
     trainer_mod.flow_package = caught
+    # each step's num_rendered, as the step returned it
+    rendered = []
+    real_step = trainer_mod.make_train_step
+
+    def kept_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def wrapped(*a, **kw):
+            out = step(*a, **kw)
+            rendered.append(out[4]["num_rendered"])
+            return out
+
+        return wrapped
+
+    trainer_mod.make_train_step = kept_step
+    # Tensor -> number conversions inside each read span
+    reads = []
+    conversions = ("__float__", "__int__", "__bool__", "item", "tolist")
+    real_conv = {n: getattr(torch.Tensor, n) for n in conversions}
+
+    def counted(name):
+        def conv(t, *a, **kw):
+            if any(sp.name == "trainer.read" for sp in profiling._state.open):
+                reads[-1] += 1
+            return real_conv[name](t, *a, **kw)
+        return conv
+
+    real_read = profiling.Span.__enter__
+
+    def enter(sp):
+        if sp.name == "trainer.read":
+            reads.append(0)
+        return real_read(sp)
+
     # the first profiler of a process and its first range pay a one-time
     # set-up that would fall inside the first span
     with profile(activities=[ProfilerActivity.CPU]), \
@@ -91,10 +128,17 @@ def traced(tmp_path_factory):
         pass
     profiling.reset()
     try:
+        for n in conversions:
+            setattr(torch.Tensor, n, counted(n))
+        profiling.Span.__enter__ = enter
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             tr.train(iterations=3, save_iterations=[9], test_iterations=[9],
                      log_every=2)
     finally:
+        for n in conversions:
+            setattr(torch.Tensor, n, real_conv[n])
+        profiling.Span.__enter__ = real_read
+        trainer_mod.make_train_step = real_step
         trainer_mod.flow_package = real
     path = str(tmp / "trace.json")
     prof.export_chrome_trace(path)
@@ -105,7 +149,8 @@ def traced(tmp_path_factory):
     tr.close()
     return dict(roots=roots, events=doc["traceEvents"],
                 base_ns=int(doc.get("baseTimeNanoseconds", 0)),
-                packages=packages)
+                packages=packages, rendered=[int(n) for n in rendered],
+                reads=reads)
 
 
 def test_off_records_nothing(tmp_path):
@@ -213,7 +258,49 @@ def test_counters_of_the_frames_and_the_reads(traced):
             sum(t.nbytes for t in pkg) + flow_valid
         assert frames.counts["host_syncs"] == len(pkg) + 1
         (read,) = [c for c in r.children if c.name == "trainer.read"]
-        assert read.counts == {"host_syncs": 2}
+        assert read.counts["host_syncs"] == 2
+
+
+def test_splat_instances_is_num_rendered_read_once(traced):
+    """The read span counts the step's num_rendered under
+    "splat_instances" beside its two host syncs, and converts exactly two
+    tensors to numbers (the loss, num_rendered): the counter is the value
+    the overflow guard reads, and adds no read; the root's summary is the
+    mean over the steps."""
+    roots = [r for r in traced["roots"] if r.name == "trainer.iteration"]
+    assert len(roots) == len(traced["rendered"]) == 3
+    assert traced["reads"] == [2, 2, 2]
+    for r, nr in zip(roots, traced["rendered"]):
+        (read,) = [c for c in r.children if c.name == "trainer.read"]
+        assert nr > 0
+        assert read.counts == {"host_syncs": 2, "splat_instances": nr}
+    for r in roots:
+        profiling._state.roots.append(r)
+    counts = profiling.summary()["trainer.iteration"]["spans"][
+        "trainer.iteration"]["counts"]
+    assert counts["splat_instances"] == pytest.approx(
+        sum(traced["rendered"]) / 3)
+
+
+def test_splat_instances_off_records_nothing(tmp_path):
+    """Without a profiler the trainer's steps render (num_rendered > 0)
+    and the store stays empty: no root, no counter."""
+    tr = _trainer(tmp_path)
+    seen = []
+    tr._build_step()
+    step = tr._step_fn
+
+    def kept(*a, **kw):
+        out = step(*a, **kw)
+        seen.append(int(out[4]["num_rendered"]))
+        return out
+
+    tr._step_fn = kept
+    tr._build_step = lambda: setattr(tr, "_step_fn", kept)
+    tr.train(iterations=2, save_iterations=[9], test_iterations=[9])
+    tr.close()
+    assert len(seen) == 2 and min(seen) > 0
+    assert profiling.roots() == [] and profiling.summary() == {}
 
 
 def _tensors(x):
