@@ -45,6 +45,8 @@ SOURCES = {
     "lab_cm": "lab_rowmajor.cu",
     "lab_rm": "lab_rowmajor.cu",
     "adam": "adam.cu",
+    "preprocess": "preprocess.cu",
+    "preprocess_bwd": "preprocess.cu",
 }
 
 launches = {name: 0 for name in SOURCES}

@@ -274,7 +274,7 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
         prep_loc = prep_lib.preprocess(
             pkg_loc["xyz"], activated_scaling(p_loc), pkg_loc["rotation"],
             pkg_loc["opacity"], pkg_loc["shs"], settings,
-            screen_offset=so_loc, active_mask=s_loc.alive)
+            screen_offset=so_loc, active_mask=s_loc.alive, backend=backend)
         ns_loc = ns // D
 
         def order(g):
@@ -338,7 +338,8 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
         prep = prep_lib.preprocess(
             pkg["xyz"], activated_scaling(params), pkg["rotation"],
             pkg["opacity"], pkg["shs"], settings,
-            screen_offset=screen_offset, active_mask=state.alive)
+            screen_offset=screen_offset, active_mask=state.alive,
+            backend=backend)
         if not gather_pkg:
             pkg = None
     slab, t, visible, nrend = _render_local_slab(

@@ -60,7 +60,7 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
                                    shs, settings,
                                    colors_precomp=colors_precomp,
                                    screen_offset=screen_offset,
-                                   active_mask=active_mask)
+                                   active_mask=active_mask, backend=backend)
     mark(stage_marks, "preprocess")
     with span("render.binning"), torch.no_grad():
         binning = binning_lib.bin_gaussians(prep, settings, capacity,

@@ -57,7 +57,8 @@ def compute_binning(camera: Camera, params: GaussianParams,
     pkg = deformed_package(params, state, config, camera.time)
     prep = prep_lib.preprocess(pkg["xyz"], activated_scaling(params),
                                pkg["rotation"], pkg["opacity"], None,
-                               settings, active_mask=state.alive)
+                               settings, active_mask=state.alive,
+                               backend=backend)
     return binning_lib.bin_gaussians(prep, settings, capacity,
                                      backend=backend)
 

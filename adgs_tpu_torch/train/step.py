@@ -85,13 +85,18 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                                          backend=be)
         mark(stage_marks, "losses")
         with span("step.backward"):
-            grads = torch.autograd.grad(total, inputs + [so],
-                                        allow_unused=True)
+            # into each leaf's .grad, in the leaf's own (contiguous) layout,
+            # as Adam's kernel takes it: the engine copies a strided
+            # gradient (the SH leaves' views of their concatenation's
+            # gradient, screen_offset's view of the packed rows' gradient)
+            # inside the backward, so no view outlives it holding its base.
+            # autograd.grad returned the views, and the engine released
+            # its own references to them at no fixed time, now and then
+            # only after Adam's allocations (+0.48 GiB at Waymo's peak).
+            total.backward(inputs=inputs + [so])
         mark(stage_marks, "backward")
-        # Adam's kernel takes contiguous leaves: the gradients of the SH
-        # leaves are strided views of their concatenation's gradient
-        grads = [torch.zeros_like(x) if g is None else g.contiguous()
-                 for x, g in zip(inputs + [so], grads)]
+        grads = [torch.zeros_like(x) if x.grad is None else x.grad
+                 for x in inputs + [so]]
         return LossAndGrads(
             logs={k: v.detach() for k, v in logs.items()},
             grads=from_leaves(trainables, grads[:-1]), screen_grad=grads[-1],

@@ -236,11 +236,19 @@ KERNELS = {
                    replaces="exp/lab_rowmajor.py:128"),
     "adam": dict(id="A1", source="adgs_tpu_torch/csrc/adam.cu",
                  replaces="none (XLA fuses adgs_tpu/train/optim.py:121)"),
+    "preprocess": dict(id="P1", source="adgs_tpu_torch/csrc/preprocess.cu",
+                       replaces="none (XLA fuses "
+                                "adgs_tpu/raster/preprocess.py:48)"),
+    "preprocess_bwd": dict(id="P2",
+                           source="adgs_tpu_torch/csrc/preprocess.cu",
+                           replaces="none (XLA fuses the VJP of "
+                                    "adgs_tpu/raster/preprocess.py:48)"),
 }
-SERVING_KERNELS = ("compact_live", "expand", "composite_fwd", "grid_sample")
-TRAINING_KERNELS = ("compact_live", "expand", "composite_fwd",
-                    "composite_bwd", "segment_sum", "grid_sample",
-                    "grid_sample_bwd", "adam")
+SERVING_KERNELS = ("preprocess", "compact_live", "expand", "composite_fwd",
+                   "grid_sample")
+TRAINING_KERNELS = ("preprocess", "preprocess_bwd", "compact_live", "expand",
+                    "composite_fwd", "composite_bwd", "segment_sum",
+                    "grid_sample", "grid_sample_bwd", "adam")
 LAB_KERNELS = ("lab_cm", "lab_rm")
 # the cli.render phase's scene: the two poses, 5 timestamps each (frame 4
 # of each camera is nvs-75's test frame)
@@ -289,8 +297,10 @@ def device_ms(fn, calls: int = 5, sessions: int = 3):
     torch.profiler records during `calls` calls, summed, over the calls.
     Beside cuda_ms it splits a call's time between the card and the host
     that enqueues it. A profiler session now and then records no device
-    event at all; such a session is run again, up to `sessions` in all,
-    and None is returned if none records any."""
+    event at all, or only some: a session whose count of device events is
+    not a whole multiple of `calls` (each call launches the same work) is
+    run again, up to `sessions` in all, and None is returned if none
+    records them all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -302,9 +312,9 @@ def device_ms(fn, calls: int = 5, sessions: int = 3):
                 fn()
             torch.cuda.synchronize()
         kernels, attr = device_events(prof)
-        if kernels:
+        if kernels and sum(e.count for e in kernels) % calls == 0:
             return sum(getattr(e, attr) for e in kernels) / 1e3 / calls
-    log("  (the profiler recorded no device time in "
+    log("  (the profiler recorded no whole session of device time in "
         f"{sessions} sessions)")
     return None
 
@@ -2528,6 +2538,164 @@ def adam_phase(dev, seed: int, real=None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# 11c. the EWA preprocess: P1 and P2 (csrc/preprocess.cu) against the plain
+# version and P2's twin
+# ---------------------------------------------------------------------------
+PREP_SLOTS = sum(ADAM_CAPACITY)    # the train cells' 2,007,040 slots
+PREP_CAMERAS = {"kitti-75": (1242, 375, 721.5377),
+                "waymo": (1920, 1280, 2055.0),
+                "nuscenes": (1600, 900, 1266.4)}
+# f32 operations a slot, counted low: P1's geometry and, for a visible
+# slot, its SH colour; P2's chain for a slot with a gradient
+PREP_FWD_OPS, PREP_SH_OPS, PREP_BWD_OPS = 150, 100, 400
+
+
+def preprocess_inputs(dev, seed: int, n: int, cam: str):
+    """Settings and Gaussians before one of the cells' cameras: 30% of the
+    slots dead (as the capacity-padded blocks), a sixteenth behind the
+    camera, a sixteenth off to the side past the frustum clamp, a sixteenth
+    below the 1/255 gate, a sixteenth of colours clamped at 0, SH 3."""
+    import torch
+    from adgs_tpu_torch.core.camera import Camera
+    from adgs_tpu_torch.render import settings_for_camera
+    width, height, focal = PREP_CAMERAS[cam]
+    rng = np.random.default_rng(seed + 23)
+    z = rng.uniform(1.0, 60.0, n)
+    tx, ty = width / (2 * focal), height / (2 * focal)
+    p = np.stack([rng.uniform(-1.1, 1.1, n) * tx * z,
+                  rng.uniform(-1.1, 1.1, n) * ty * z, z], -1)
+    q = n // 16
+    p[:q, 2] = rng.uniform(-5.0, 0.19, q)
+    p[q:2 * q, 0] = rng.choice([-1, 1], q) * 3.0 * tx * p[q:2 * q, 2]
+    R, T = camera_poses()[1]
+    g = dict(means3d=(p - T) @ R,
+             scales=np.exp(rng.normal(-2.5, 0.6, (n, 3))),
+             rotations=rng.normal(size=(n, 4)),
+             opacities=rng.uniform(0.02, 0.99, n),
+             shs=rng.normal(0.0, 0.3, (n, 16, 3)))
+    g["rotations"] /= np.linalg.norm(g["rotations"], axis=-1, keepdims=True)
+    g["opacities"][2 * q:3 * q] = 0.003
+    g["shs"][3 * q:4 * q, 0] = -3.0
+    dead = rng.random(n) < ADAM_DEAD
+    g["means3d"][dead] = 0.0
+    g["scales"][dead] = 1.0
+    g["rotations"][dead] = (1.0, 0.0, 0.0, 0.0)
+    g["opacities"][dead] = 1.0 / (1.0 + math.exp(15.0))
+    cam_ = Camera.create(R=R, T=T, fovx=2 * math.atan(width / (2 * focal)),
+                         fovy=2 * math.atan(height / (2 * focal)),
+                         width=width, height=height, device=dev)
+    t = {k: torch.as_tensor(v.astype(np.float32), device=dev)
+         for k, v in g.items()}
+    return (settings_for_camera(cam_, 3), t,
+            torch.as_tensor(~dead, device=dev))
+
+
+def sh_order_units(got, want, t, st, vis) -> float:
+    """The largest |P1 - plain| of rgb on the visible slots, in units of
+    2^-24 (sum_k |b_k sh_k| + 0.5): both sum the same K rounded terms, in
+    another order, which moves each sum by at most ~K such units."""
+    from adgs_tpu_torch.core import sh as sh_lib
+    d = t["means3d"] - st.campos
+    u = d / d.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+    b = sh_lib.sh_basis(st.sh_degree, u)
+    mag = (b[:, :, None].abs() * t["shs"][:, :b.shape[1]].abs()).sum(1)
+    units = (got - want).abs() / ((mag + 0.5) * 2.0 ** -24)
+    return float(units[vis].max())
+
+
+def preprocess_phase(dev, seed: int) -> dict:
+    """P1 at each train cell's camera over PREP_SLOTS slots: every output
+    bitwise the plain version's but rgb, which on visible slots lies within
+    2K units of its SH sum's rounding (sh_order_units) and is 0 elsewhere;
+    P2 with N(0, 1) cotangents on the visible slots (a step's gradient
+    reaches no other) within 1e-6 of its twin, the worst leaf by norm, and
+    zeros elsewhere. Records at the KITTI camera: card and device ms, the
+    byte bound (each input and output byte once, the SH rows only where a
+    slot needs them), the plain version's ms (P1: preprocess_torch; P2: its
+    twin) and the largest absolute error over the three cameras."""
+    import torch
+    from adgs_tpu_torch.raster import preprocess as prep
+    n = PREP_SLOTS
+    recs = {}
+    p1_err = p2_err = 0.0
+    for cam in PREP_CAMERAS:
+        st, t, active = preprocess_inputs(dev, seed, n, cam)
+        so = torch.zeros((n, 2), device=dev)
+        args = (t["means3d"], t["scales"], t["rotations"], t["opacities"],
+                t["shs"], st)
+        kw = dict(screen_offset=so, active_mask=active)
+        got = prep.preprocess(*args, backend="cuda", **kw)
+        want = prep.preprocess_torch(*args, **kw)
+        vis = want.visible
+        n_vis = int(vis.sum())
+        for f in ("rect_min", "rect_max", "tiles_touched", "visible",
+                  "radii", "mean2d", "depth", "conic", "extent"):
+            check_bitwise(f"P1 {cam} {f} vs the plain version",
+                          getattr(got, f), getattr(want, f))
+        units = sh_order_units(got.rgb, want.rgb, t, st, vis)
+        err = float((got.rgb[vis] - want.rgb[vis]).abs().max())
+        off = int(torch.count_nonzero(got.rgb[~vis]))
+        p1_err = max(p1_err, err)
+        log(f"  P1 {cam} rgb vs the plain version: {err:.3e} at most on the "
+            f"visible slots, {units:.2f} units of its SH sum's rounding "
+            f"(limit 32), {off} nonzero off them")
+        if units > 32 or off:
+            raise AssertionError(f"P1 {cam} rgb: {units} units, {off} off")
+        gen = torch.Generator(device=dev).manual_seed(seed + 29)
+        cots = [torch.randn(s, generator=gen, device=dev)
+                * (vis[:, None] if len(s) == 2 else vis)
+                for s in ((n, 2), (n,), (n, 3), (n, 3))]
+        bwd = prep._preprocess_bwd(t["means3d"], t["scales"], t["rotations"],
+                                   t["shs"], st, *cots, want.radii)
+        twin = prep.preprocess_bwd_torch(t["means3d"], t["scales"],
+                                         t["rotations"], t["shs"], st, *cots,
+                                         radii=want.radii)
+        errs = [float((a - b).norm() / b.norm()) for a, b in zip(bwd, twin)]
+        p2_err = max(p2_err, *(float((a - b).abs().max())
+                                for a, b in zip(bwd, twin)))
+        zeros = all(int(torch.count_nonzero(a[~vis])) == 0 for a in bwd)
+        log(f"# P1/P2 at {cam}: {n} slots, {n_vis} visible; P2 vs its twin "
+            f"by leaf (means, scales, rotations, shs) {errs}, zeros off the "
+            f"visible slots {zeros}")
+        if max(errs) > 1e-6 or not zeros:
+            raise AssertionError(f"P2 at {cam}: {errs}, zeros {zeros}")
+        if not recs:
+            ins = (t["means3d"], t["scales"], t["rotations"], t["shs"], so,
+                   t["opacities"], active, st)
+            bwd_args = (t["means3d"], t["scales"], t["rotations"], t["shs"],
+                        st, *cots, want.radii)
+            fwd_t = times(lambda: prep._preprocess_fwd(*ins), 20)
+            bwd_t = times(lambda: prep._preprocess_bwd(*bwd_args), 20)
+            plain_ms = cuda_ms(lambda: prep.preprocess_torch(*args, **kw), 3)
+            twin_ms = cuda_ms(lambda: prep.preprocess_bwd_torch(*bwd_args),
+                              3)
+            # P1: 53 B of geometry in and 69 B out a slot, 192 B of SH a
+            # visible slot; P2: 36 B of gradients and 4 B of radius in and
+            # 232 B out a slot, 40 B of geometry and 192 B of SH a slot
+            # with a gradient
+            recs["preprocess"] = dict(
+                kernel="preprocess", plain_ms=plain_ms,
+                bytes=122 * n + 192 * n_vis,
+                flops=PREP_FWD_OPS * n + PREP_SH_OPS * n_vis,
+                use=f"{cam}: {n} slots, {n_vis} visible, SH 3", **fwd_t)
+            recs["preprocess_bwd"] = dict(
+                kernel="preprocess_bwd", plain_ms=twin_ms,
+                bytes=272 * n + 232 * n_vis,
+                flops=PREP_BWD_OPS * n_vis,
+                use=f"{cam}: {n} slots, {n_vis} with a gradient", **bwd_t)
+            for key, r in recs.items():
+                log(f"# {KERNELS[key]['id']} {cam}: card {r['ms']:.4f} ms, "
+                    f"device {fmt_ms(r['device_ms'])}, bound "
+                    f"{r['bytes'] / HBM_BYTES_S * 1e3:.4f} ({r['bytes']} B "
+                    f"at 3.35 TB/s), plain {r['plain_ms']:.4f}")
+        del t, got, want, bwd, twin, cots
+        torch.cuda.empty_cache()
+    recs["preprocess"]["max_abs_err"] = p1_err
+    recs["preprocess_bwd"]["max_abs_err"] = p2_err
+    return recs
+
+
 def adam_library(p, g, m, v):
     """torch._fused_adam_ over the same leaves (in place on copies, one
     learning rate, eps inside its own formula): a yardstick of what one
@@ -3829,7 +3997,9 @@ def multi_step_rank(path: str, backend: str, device: str = "cuda",
         return out
     glg, gnew, _ = run(make(mesh, "gathered", True), cams[0], batch, rays)
     for k, v in slab_logs[True].items():
-        if k in ("num_rendered", "exchange_overflow"):
+        # splat_instances: the slab path's sum over the slabs, which the
+        # gathered path does not log
+        if k in ("num_rendered", "exchange_overflow", "splat_instances"):
             continue
         if not np.isclose(v, float(glg.logs[k]), rtol=2e-5, atol=1e-7):
             raise AssertionError(f"slab vs gathered {k}: {v} vs "
@@ -4312,6 +4482,9 @@ def run(dev, seed: int, card: str = "no card") -> list:
                                               reqs, capacity)
     log(f"# served {len(outs)} frames; launches {serve_launches}")
     check_launched("serving", serve_launches, SERVING_KERNELS)
+    if serve_launches["preprocess"] != len(reqs):
+        raise AssertionError(f"P1: {serve_launches['preprocess']} launches "
+                             f"in {len(reqs)} requests")
     for i, out in enumerate(outs):
         if int(out["num_rendered"]) > capacity:
             raise AssertionError(f"frame {i}: instance overflow "
@@ -4361,9 +4534,10 @@ def run(dev, seed: int, card: str = "no card") -> list:
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"# trained {len(logs)} steps; launches {launches}")
     check_launched("training", launches, TRAINING_KERNELS)
-    if launches["adam"] != len(logs):
-        raise AssertionError(f"A1: {launches['adam']} launches in "
-                             f"{len(logs)} training steps")
+    for name in ("adam", "preprocess", "preprocess_bwd"):
+        if launches[name] != len(logs):
+            raise AssertionError(f"{KERNELS[name]['id']}: {launches[name]} "
+                                 f"launches in {len(logs)} training steps")
     check_train_logs(logs, capacity)
     log("# losses per step: " + json.dumps(
         [round(float(lg["total_loss"]), 6) for lg in logs]) + "; last "
@@ -4414,6 +4588,8 @@ def run(dev, seed: int, card: str = "no card") -> list:
     rec["adam"] = adam_phase(dev, seed, real=(TrainableState(params, env),
                                               lg.grads, start[2]))
     del lg
+    # 11c. P1 and P2 at the train cells' slot count
+    rec.update(preprocess_phase(dev, seed))
 
     # 12. the lab (E1, E2)
     log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")
