@@ -12,6 +12,12 @@ resolves an entry point and sets its ctypes signature once, so a
 wrapper's call costs its argument checks, the pointer conversions and
 the ctypes call.
 
+`use` is the one rule by which every wrapper chooses between its kernel
+and its plain twin: a CUDA tensor takes the kernel, any other tensor the
+twin. `plain()` sends the card to the twins too, for checks that hold a
+kernel path to the plain one. An autograd Function decides in its forward,
+keeps the decision on its ctx, and runs its backward `following` it.
+
 `launches` counts, per kernel, the calls that launched it. Each wrapper
 adds one where it launches, and nowhere else, so a caller can reset the
 counts, drive a path and read which kernels it went through.
@@ -19,11 +25,13 @@ counts, drive a path and read which kernels it went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,10 +59,53 @@ SOURCES = {
 
 launches = {name: 0 for name in SOURCES}
 
+# depth of nested plain() blocks: process-wide, not thread-local, since
+# autograd runs a CUDA backward on a thread of its own
+_plain = 0
+_plain_lock = threading.Lock()
+# the decision a backward running on this thread follows (`following`)
+_backward = threading.local()
+
 _libs: dict[str, ctypes.PyDLL] = {}
 _entries: dict[tuple[str, str], object] = {}
 # argument codes of `entry` signatures
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong}
+
+
+def use(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel on operand t (else it runs
+    its plain twin): t is on the card and no plain() block is open, or,
+    inside `following`, its forward took the kernels."""
+    kernel = getattr(_backward, "kernel", None)
+    return t.is_cuda and (not _plain if kernel is None else kernel)
+
+
+@contextlib.contextmanager
+def plain():
+    """Every wrapper runs its plain twin inside the block, on the card
+    too, in every thread of the process. Nests; the state before it comes
+    back on exit, after an exception too."""
+    global _plain
+    with _plain_lock:
+        _plain += 1
+    try:
+        yield
+    finally:
+        with _plain_lock:
+            _plain -= 1
+
+
+@contextlib.contextmanager
+def following(kernel: bool):
+    """Inside an autograd Function's backward: the wrappers take the
+    kernels exactly when its forward did (`kernel`, kept on its ctx),
+    whatever plain() says meanwhile."""
+    before = getattr(_backward, "kernel", None)
+    _backward.kernel = kernel
+    try:
+        yield
+    finally:
+        _backward.kernel = before
 
 
 def reset_launches() -> None:

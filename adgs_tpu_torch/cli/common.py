@@ -9,9 +9,10 @@ that reads it, for both entry points (cli.train and cli.render).
 
 The renderer knobs of ModelConfig keep the JAX package's names and
 values, so a saved config means the same in both packages:
-  - `backend`: "auto" follows the device, "pallas" is the port's "cuda"
-    (the hand-written kernels), "xla" and "reference" are its "torch"
-    (the plain twins);
+  - `backend`: under "xla" and "reference" the entry point runs inside
+    `_kernels.plain()` (the plain twins, on the card too); "auto" and
+    "pallas" leave the choice to `_kernels.use` (the hand-written kernels
+    on the card);
   - `max_per_tile` and `chunk` bound the JAX compositor's per-tile window;
     the port's compositor has no such bound, so they are read and unused.
 """
@@ -19,17 +20,18 @@ values, so a saved config means the same in both packages:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
 from typing import Optional
 
+from .. import _kernels
 from ..train.config import OptimizationConfig
 
-# ModelConfig.backend -> the port's render backend (None: from the device)
-_BACKENDS = {"auto": None, "pallas": "cuda", "xla": "torch",
-             "reference": "torch"}
+# ModelConfig.backend -> whether the entry point runs under _kernels.plain()
+_PLAIN = {"auto": False, "pallas": False, "xla": True, "reference": True}
 
 
 @dataclasses.dataclass
@@ -71,11 +73,12 @@ def layout_from_env() -> str:
     return "rows" if int(os.environ.get("ADGS_RM", "0")) else "gather"
 
 
-def render_backend(name: str) -> Optional[str]:
-    """The port's render backend for ModelConfig.backend."""
-    if name not in _BACKENDS:
+def backend_context(name: str):
+    """The context an entry point runs in for ModelConfig.backend
+    (module docstring)."""
+    if name not in _PLAIN:
         raise ValueError(f"unknown backend: {name}")
-    return _BACKENDS[name]
+    return _kernels.plain() if _PLAIN[name] else contextlib.nullcontext()
 
 
 def load_config_module(path: str) -> dict:

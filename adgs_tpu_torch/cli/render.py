@@ -37,10 +37,9 @@ from ..data.readers import read_scene
 from ..models import gaussians as gm
 from ..models.env_map import angles_to_direction, camera_rays
 from ..ops.image import psnr, ssim
-from ..raster.api import resolve_backend
 from ..train import checkpoint as ckpt_lib
 from .. import render as render_lib
-from .common import layout_from_env, load_cfg_args, render_backend
+from .common import backend_context, layout_from_env, load_cfg_args
 
 
 def _latest_iteration(model_path: str) -> int:
@@ -98,7 +97,6 @@ def render_set(model_path, name, iteration, frames, params, state, config,
     renderings: dict = {}
     render_fn = render_lib.make_staged_render_fn(
         config, active_sh_degree=active_sh, inv_depth=model_cfg.inv_depth,
-        backend=render_backend(model_cfg.backend),
         capacity=model_cfg.capacity, layout=layout)
     for idx, fr in enumerate(frames):
         cam, batch, _ = load_frame(fr, model_cfg.resolution, device=device)
@@ -162,14 +160,18 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="the card unless given (e.g. cpu)")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
-    layout = layout_from_env()
-
     model_cfg, _ = load_cfg_args(args.model_path)
     if args.source_path:
         model_cfg = dataclasses.replace(model_cfg,
                                         source_path=args.source_path)
-    backend = render_backend(model_cfg.backend)
+    with backend_context(model_cfg.backend):
+        _run(args, model_cfg)
+
+
+def _run(args, model_cfg):
+    """main's mode on the loaded model."""
+    device = resolve_device(args.device)
+    layout = layout_from_env()
     iteration = (args.iteration if args.iteration > 0
                  else _latest_iteration(args.model_path))
     base = os.path.join(args.model_path, "point_cloud",
@@ -225,7 +227,7 @@ def main(argv=None):
                     cam, params, state, config, env_map=env,
                     cam_rays=rays_cache[fr.cam_id],
                     override_color=torch.clamp(d, 0.0, 1.0),
-                    active_sh_degree=active_sh, backend=backend,
+                    active_sh_degree=active_sh,
                     capacity=model_cfg.capacity, layout=layout)
             _save_png(os.path.join(out_dir, f"{idx:05d}.png"),
                       out["foreground"])
@@ -247,8 +249,7 @@ def main(argv=None):
                         rng.uniform(-np.pi / 2, np.pi / 2, n)], -1)
         ang_t = torch.as_tensor(ang, dtype=torch.float32, device=device)
         with torch.no_grad():
-            rgb = env.color(ang_t, backend=resolve_backend(backend, device),
-                            input_angle=True)
+            rgb = env.color(ang_t, input_angle=True)
             pts = angles_to_direction(ang_t)
         store_point_cloud(os.path.join(out_dir, "env_map.ply"),
                           pts.cpu().numpy(), rgb.cpu().numpy().T * 255.0)

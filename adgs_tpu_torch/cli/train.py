@@ -44,8 +44,8 @@ import torch.distributed as dist
 from ..data.readers import read_scene
 from ..train.config import OptimizationConfig
 from ..train.trainer import Trainer
-from .common import (ModelConfig, add_dataclass_args, layout_from_env,
-                     load_config_module, merge, render_backend,
+from .common import (ModelConfig, add_dataclass_args, backend_context,
+                     layout_from_env, load_config_module, merge,
                      save_cfg_args)
 
 
@@ -139,36 +139,39 @@ def main(argv=None):
               f"frame_gap {scene.frame_gap:.4f}; init pts "
               f"{len(scene.points)}")
 
-    trainer = Trainer(
-        scene, opt_cfg, model_cfg.model_path,
-        order_args=order_args,
-        sh_degree=model_cfg.sh_degree,
-        env_resolution=model_cfg.env_resolution,
-        resolution=model_cfg.resolution,
-        default_order_downsample_ratio=model_cfg.default_order_downsample_ratio,
-        backend=render_backend(model_cfg.backend),
-        capacity=model_cfg.capacity,
-        inv_depth=model_cfg.inv_depth,
-        seed=args.seed,
-        white_background=model_cfg.white_background,
-        profile_dir=args.profile,
-        devices=model_cfg.devices,
-        batch_cameras=model_cfg.batch_cameras,
-        device=args.device,
-        layout=layout_from_env(),
-        primitive_exchange=model_cfg.primitive_exchange,
-        exchange_capacity=args.exchange_capacity)
+    with backend_context(model_cfg.backend):
+        trainer = Trainer(
+            scene, opt_cfg, model_cfg.model_path,
+            order_args=order_args,
+            sh_degree=model_cfg.sh_degree,
+            env_resolution=model_cfg.env_resolution,
+            resolution=model_cfg.resolution,
+            default_order_downsample_ratio=(
+                model_cfg.default_order_downsample_ratio),
+            capacity=model_cfg.capacity,
+            inv_depth=model_cfg.inv_depth,
+            seed=args.seed,
+            white_background=model_cfg.white_background,
+            profile_dir=args.profile,
+            devices=model_cfg.devices,
+            batch_cameras=model_cfg.batch_cameras,
+            device=args.device,
+            layout=layout_from_env(),
+            primitive_exchange=model_cfg.primitive_exchange,
+            exchange_capacity=args.exchange_capacity)
 
-    if args.start_checkpoint:
-        trainer.resume(args.start_checkpoint)
+        if args.start_checkpoint:
+            trainer.resume(args.start_checkpoint)
 
-    save_iters = sorted(set(args.save_iterations + [opt_cfg.iterations]))
-    test_iters = sorted(set(args.test_iterations + [opt_cfg.iterations]))
-    try:
-        trainer.train(iterations=opt_cfg.iterations,
-                      save_iterations=save_iters, test_iterations=test_iters)
-    finally:
-        trainer.close()
+        last = [opt_cfg.iterations]
+        save_iters = sorted(set(args.save_iterations + last))
+        test_iters = sorted(set(args.test_iterations + last))
+        try:
+            trainer.train(iterations=opt_cfg.iterations,
+                          save_iterations=save_iters,
+                          test_iterations=test_iters)
+        finally:
+            trainer.close()
     if main_rank and trainer.render_capacity != model_cfg.capacity:
         # a full-frame render's capacity: on a mesh, the slabs' together
         save_cfg_args(model_cfg.model_path, dataclasses.replace(

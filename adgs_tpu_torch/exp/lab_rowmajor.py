@@ -125,9 +125,9 @@ def _launch(name: str, src: torch.Tensor, mode: int, ld: int,
 
 
 def block_sums_cm(inst_cm: torch.Tensor, p: Programs) -> torch.Tensor:
-    """Kernel E1 on a CUDA tensor (component-major [16, L], L >= covered);
-    its plain twin on a CPU tensor."""
-    if inst_cm.device.type == "cpu":
+    """Kernel E1 (component-major [16, L], L >= covered), or its plain
+    twin where `_kernels.use` says so."""
+    if not _kernels.use(inst_cm):
         return block_sums_cm_torch(inst_cm, p)
     if inst_cm.dim() != 2 or inst_cm.shape[0] != F \
             or inst_cm.shape[1] < p.covered:
@@ -142,8 +142,8 @@ def block_sums_rm(inst: torch.Tensor, p: Programs,
     L >= covered, rows 16-byte aligned): staged through a two-slot
     shared-memory ring by asynchronous copies and read as [16, 256] (the
     JAX rm_kernel and its two-slot DMA) or read row by row
-    (rm_notrans_kernel); its plain twin on a CPU tensor."""
-    if inst.device.type == "cpu":
+    (rm_notrans_kernel); or its plain twin where `_kernels.use` says so."""
+    if not _kernels.use(inst):
         return block_sums_rm_torch(inst, p)
     if inst.dim() != 2 or inst.shape[1] not in (16, 128) \
             or inst.shape[0] < p.covered:

@@ -56,14 +56,12 @@ class EnvironmentMap:
                         dtype=np.float32) * 2.0 - 1.0) * 1e-4
         return cls(grid=torch.as_tensor(g, device=resolve_device(device)))
 
-    def color(self, view: torch.Tensor, backend: str = "cuda",
+    def color(self, view: torch.Tensor,
               input_angle: bool = False) -> torch.Tensor:
         """dirs [..., 3] (or, with input_angle, (azimuth, elevation)
         [..., 2]) -> sky colour [C, ...], differentiable with respect to
-        the grid (the rays are constants: they get no gradient).
-        backend "cuda" samples with kernel B7 and takes the gradient with
-        B8 (their twins on CPU tensors), "torch" with the twins on any
-        device."""
+        the grid (the rays are constants: they get no gradient), through
+        GridSample (B7 and B8, or their twins)."""
         if input_angle:
             angles = view
         else:
@@ -73,14 +71,11 @@ class EnvironmentMap:
         per_rad = angles.new_tensor([1.0 / math.pi, 2.0 / math.pi])
         copied_in(per_rad)
         coords = angles * per_rad
-        if backend not in ("cuda", "torch"):
-            raise ValueError(f"unknown backend: {backend}")
         return torch.sigmoid(GridSample.apply(
-            self.grid, coords.detach().contiguous(), backend))
+            self.grid, coords.detach().contiguous()))
 
     def image_background(self, cam_rays: torch.Tensor,
-                         world_view: torch.Tensor,
-                         backend: str = "cuda") -> torch.Tensor:
+                         world_view: torch.Tensor) -> torch.Tensor:
         """[H, W, 3] camera rays + transposed-stored view matrix ->
         [C, H, W] sky image."""
-        return self.color(cam_rays @ world_view[:3, :3].T, backend=backend)
+        return self.color(cam_rays @ world_view[:3, :3].T)

@@ -2,8 +2,8 @@
 (counterpart of adgs_tpu/ops/grid_sample.py and
 env_map._grid_sample_align_corners with its custom VJP).
 
-  - `grid_sample` is kernel B7 (csrc/grid_sample.cu) on CUDA tensors and its
-    plain twin `grid_sample_torch` on CPU tensors. The contract is torch's
+  - `grid_sample` is kernel B7 (csrc/grid_sample.cu) or its plain twin
+    `grid_sample_torch`, as `_kernels.use` says. The contract is torch's
     F.grid_sample(align_corners=True, padding_mode='zeros') for a [C, Hg, Wg]
     grid at [..., 2] (x, y) coords in [-1, 1], returning [C, ...];
   - `grid_sample_bwd` is kernel B8 (csrc/grid_sample_bwd.cu), the gradient
@@ -60,10 +60,10 @@ def grid_sample_torch(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def grid_sample(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Kernel B7 on CUDA tensors; its plain twin on CPU tensors. The CUDA
-    path does its checks, one allocation and one ctypes call, so that a
-    call costs the host about what one PyTorch operator does."""
-    if grid.is_cpu:
+    """Kernel B7, or its plain twin where `_kernels.use` says so. The
+    kernel's path does its checks, one allocation and one ctypes call, so
+    that a call costs the host about what one PyTorch operator does."""
+    if not _kernels.use(grid):
         return grid_sample_torch(grid, coords)
     if grid.dim() != 3 or coords.shape[-1] != 2:
         raise ValueError("grid_sample: expected grid [C,Hg,Wg], coords [...,2]")
@@ -149,12 +149,12 @@ def grid_sample_bwd_pixel_order(g: torch.Tensor, coords: torch.Tensor,
 
 def grid_sample_bwd(g: torch.Tensor, coords: torch.Tensor,
                     grid_shape) -> torch.Tensor:
-    """Kernel B8 on CUDA tensors; its plain twin on CPU tensors. B8 keys
+    """Kernel B8, or its plain twin where `_kernels.use` says so. B8 keys
     the pixels by base cell, a stable torch.sort orders them between its
     launches, and B8 takes each tap's product once, writes the zeros of
     the gradient in one pass and then each cell that taps reach with its
     sum, taken in tap order."""
-    if g.device.type == "cpu":
+    if not _kernels.use(g):
         return grid_sample_bwd_torch(g, coords, grid_shape)
     C, Hg, Wg = grid_shape
     npix = coords.numel() // 2
@@ -198,20 +198,20 @@ def grid_sample_bwd(g: torch.Tensor, coords: torch.Tensor,
 
 class GridSample(torch.autograd.Function):
     """Sample grid [C, Hg, Wg] at coords [..., 2] -> [C, ...],
-    differentiable with respect to the grid only. backend "cuda": B7
-    forward, B8 backward (their twins on CPU tensors); "torch": the twins
-    on any device."""
+    differentiable with respect to the grid only: B7 forward, B8 backward,
+    or their twins, as `_kernels.use` says at the forward; the backward
+    follows it."""
 
     @staticmethod
-    def forward(ctx, grid, coords, backend: str):
+    def forward(ctx, grid, coords):
         ctx.save_for_backward(coords)
-        ctx.grid_shape, ctx.backend = tuple(grid.shape), backend
-        fwd = grid_sample if backend == "cuda" else grid_sample_torch
+        ctx.grid_shape, ctx.kernel = tuple(grid.shape), _kernels.use(grid)
+        fwd = grid_sample if ctx.kernel else grid_sample_torch
         return fwd(grid, coords)
 
     @staticmethod
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
-        bwd = (grid_sample_bwd if ctx.backend == "cuda"
-               else grid_sample_bwd_torch)
-        return bwd(g.contiguous(), coords, ctx.grid_shape), None, None
+        bwd = grid_sample_bwd if ctx.kernel else grid_sample_bwd_torch
+        with _kernels.following(ctx.kernel):
+            return bwd(g.contiguous(), coords, ctx.grid_shape), None

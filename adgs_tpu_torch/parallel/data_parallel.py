@@ -15,14 +15,12 @@ frames.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from ..core.camera import Camera
 from ..models.gaussians import GaussianConfig
-from ..raster.api import resolve_backend
 from ..render import render
 from ..train.config import OptimizationConfig
 from ..train.losses import FrameBatch, compute_losses
@@ -62,9 +60,7 @@ def make_dp_train_step(config: GaussianConfig, opt: OptimizationConfig,
                        frame_gap: float, scene_extent: float,
                        cameras_extent: float, mesh: Mesh,
                        axis: str = "data", capacity: int = 1 << 18,
-                       inv_depth: bool = True,
-                       backend: Optional[str] = None,
-                       layout: str = "gather"):
+                       inv_depth: bool = True, layout: str = "gather"):
     """step(params, env, opt_state, state, cameras[B], batches[B], rays[B],
     iteration, active_sh_degree) with B == mesh.shape[axis] == the number
     of ranks: rank b trains camera b. The loss is the camera mean."""
@@ -79,7 +75,6 @@ def make_dp_train_step(config: GaussianConfig, opt: OptimizationConfig,
     def step(params, env, opt_state, state, cameras, batches, rays,
              iteration, active_sh_degree: int = 3):
         dev = params.scene_xyz.device
-        be = resolve_backend(backend, dev)
         cam, batch, ray = (select_camera(x, b)
                            for x in (cameras, batches, rays))
         trainables = TrainableState(gaussians=params, env=env)
@@ -92,10 +87,9 @@ def make_dp_train_step(config: GaussianConfig, opt: OptimizationConfig,
                      cam_rays=ray, flow_time=flow_time,
                      render_objmask=render_objmask, screen_offset=so,
                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
-                     backend=be, capacity=capacity, layout=layout)
+                     capacity=capacity, layout=layout)
         total, logs = compute_losses(pkg, batch, tr.gaussians, state, config,
-                                     opt, frame_gap, scene_extent,
-                                     backend=be)
+                                     opt, frame_gap, scene_extent)
         # the camera mean: each rank differentiates its camera's share
         grads = torch.autograd.grad(total * (1.0 / B), inputs + [so],
                                     allow_unused=True)

@@ -43,7 +43,6 @@ from ..ops import flow as flow_ops
 from ..ops import image as image_ops
 from ..raster import binning as binning_lib
 from ..raster import preprocess as prep_lib
-from ..raster.api import resolve_backend
 from ..raster.composite import depth_feature
 from ..raster.preprocess import Preprocessed
 from ..raster.render import OP_FLOOR, CompositePacked, pack_gaussian_rows
@@ -62,7 +61,7 @@ _SSIM_HALO = 5   # 11x11 window reach
 
 def _render_local_slab(prep: Preprocessed, settings: RasterSettings,
                        rows_per_dev: int, index: int, flow_points, semantic,
-                       capacity: int, backend: str, layout: str):
+                       capacity: int, layout: str):
     """Bin and composite this rank's slab (the counterpart of
     composite_tiles_pallas over JAX's window): tile rows [index *
     rows_per_dev, + rows_per_dev) of the frame, past its last row padded
@@ -93,8 +92,7 @@ def _render_local_slab(prep: Preprocessed, settings: RasterSettings,
                                   torch.zeros_like(tiles)).to(torch.int32),
         visible=visible)
     with torch.no_grad():
-        b = binning_lib.bin_gaussians(wprep, settings, capacity,
-                                      backend=backend)
+        b = binning_lib.bin_gaussians(wprep, settings, capacity)
     feats = [wprep.rgb, depth_feature(wprep.depth, settings.inv_depth)[:, None]]
     if flow_points is not None:
         feats.append(flow_points)
@@ -107,8 +105,7 @@ def _render_local_slab(prep: Preprocessed, settings: RasterSettings,
     packed, _ = pack_gaussian_rows(wprep.mean2d, wprep.conic, log_op,
                                    features)
     ch = features.shape[-1]
-    blended, final_t = CompositePacked.apply(packed, b, ch, gx, backend,
-                                             layout)
+    blended, final_t = CompositePacked.apply(packed, b, ch, gx, layout)
     blended = blended.reshape(gy, gx, ch, TILE_Y * TILE_X)[r0:r0 + n_real]
     final_t = final_t.reshape(gy, gx, TILE_Y * TILE_X)[r0:r0 + n_real]
     pad = rows_per_dev - n_real
@@ -247,7 +244,7 @@ def _frame_order(rows: torch.Tensor, D: int, cap_pair: int, ns_loc: int,
 
 def _device_render(params, state, screen_offset, *, config, settings, time,
                    flow_time, render_objmask, mesh: Mesh, axis: str,
-                   rows_per_dev, capacity, backend, layout, can_shard_prims,
+                   rows_per_dev, capacity, layout, can_shard_prims,
                    primitive_exchange, exchange_capacity,
                    gather_pkg: bool = True):
     """This rank's render: deform + preprocess the local 1/D primitive
@@ -274,7 +271,7 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
         prep_loc = prep_lib.preprocess(
             pkg_loc["xyz"], activated_scaling(p_loc), pkg_loc["rotation"],
             pkg_loc["opacity"], pkg_loc["shs"], settings,
-            screen_offset=so_loc, active_mask=s_loc.alive, backend=backend)
+            screen_offset=so_loc, active_mask=s_loc.alive)
         ns_loc = ns // D
 
         def order(g):
@@ -322,7 +319,7 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
             prep, flow_points, semantic = _unpayload(rows, has_flow, has_sem)
             slab, t, _, nrend = _render_local_slab(
                 prep, settings, rows_per_dev, d, flow_points, semantic,
-                capacity, backend, layout)
+                capacity, layout)
             return (slab, t, radii_full > 0, radii_full, pkg, ex_overflow,
                     nrend)
 
@@ -338,13 +335,12 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
         prep = prep_lib.preprocess(
             pkg["xyz"], activated_scaling(params), pkg["rotation"],
             pkg["opacity"], pkg["shs"], settings,
-            screen_offset=screen_offset, active_mask=state.alive,
-            backend=backend)
+            screen_offset=screen_offset, active_mask=state.alive)
         if not gather_pkg:
             pkg = None
     slab, t, visible, nrend = _render_local_slab(
         prep, settings, rows_per_dev, d, flow_points, semantic, capacity,
-        backend, layout)
+        layout)
     # visible anywhere -> visible (for the densification statistics)
     vis = visible.to(torch.int32)
     dist.all_reduce(vis, group=group)
@@ -362,8 +358,8 @@ def sharded_render_images(
     active_sh_degree: Optional[int] = None, inv_depth: bool = True,
     capacity: int = 1 << 18, shard_primitives: bool = True,
     primitive_exchange: bool = False,
-    exchange_capacity: Optional[int] = None, backend: Optional[str] = None,
-    layout: str = "gather", gather_pkg: bool = True) -> dict:
+    exchange_capacity: Optional[int] = None, layout: str = "gather",
+    gather_pkg: bool = True) -> dict:
     """The multi-rank render, returning on every rank the dict that
     render() returns. Two sharded axes of work ride the same mesh axis:
     the primitive axis (each rank deforms + preprocesses its 1/D slice of
@@ -375,7 +371,6 @@ def sharded_render_images(
     sh_degree = (active_sh_degree if active_sh_degree is not None
                  else config.sh_degree)
     settings = settings_for_camera(camera, sh_degree, inv_depth)
-    backend = resolve_backend(backend, params.scene_xyz.device)
     D = mesh.shape[axis]
     group = mesh.group(axis)
     rows_per_dev = -(-settings.grid_y // D)
@@ -387,8 +382,7 @@ def sharded_render_images(
         params, state, screen_offset, config=config, settings=settings,
         time=camera.time, flow_time=flow_time,
         render_objmask=render_objmask, mesh=mesh, axis=axis,
-        rows_per_dev=rows_per_dev, capacity=capacity, backend=backend,
-        layout=layout,
+        rows_per_dev=rows_per_dev, capacity=capacity, layout=layout,
         can_shard_prims=shard_primitives and _can_shard_prims(params, D),
         primitive_exchange=primitive_exchange,
         exchange_capacity=exchange_capacity, gather_pkg=gather_pkg)
@@ -410,8 +404,7 @@ def sharded_render_images(
         img_sem = full[..., chc:chc + 1].permute(2, 0, 1)
     opacity = 1.0 - t_full
     if env_map is not None and cam_rays is not None:
-        background = env_map.image_background(cam_rays, camera.world_view,
-                                              backend=backend)
+        background = env_map.image_background(cam_rays, camera.world_view)
         rendered = color + (1.0 - opacity)[None] * background
     else:
         background = torch.zeros_like(color)
@@ -661,8 +654,7 @@ def make_sharded_train_step(
     config: GaussianConfig, opt: OptimizationConfig, frame_gap: float,
     scene_extent: float, cameras_extent: float, mesh: Mesh,
     axis: str = "tile", capacity: int = 1 << 18, inv_depth: bool = True,
-    backend: Optional[str] = None, layout: str = "gather",
-    primitive_exchange: bool = False,
+    layout: str = "gather", primitive_exchange: bool = False,
     exchange_capacity: Optional[int] = None, loss_mode: str = "slab",
     data_axis: Optional[str] = None):
     """The multi-rank counterpart of train.step.make_train_step, with its
@@ -696,7 +688,7 @@ def make_sharded_train_step(
     B = mesh.shape[data_axis] if batched else None
     group = mesh.group(axis)
 
-    def slab_loss(tr, so, state, camera, batch, cam_rays, sh, be):
+    def slab_loss(tr, so, state, camera, batch, cam_rays, sh):
         cam, batch_b, rays_b, so_b = camera, batch, cam_rays, so
         if batched:
             b = mesh.coords[data_axis]
@@ -725,7 +717,7 @@ def make_sharded_train_step(
             p, state, so_b, config=config, settings=settings, time=cam.time,
             flow_time=flow_time, render_objmask=render_objmask, mesh=mesh,
             axis=axis, rows_per_dev=rows_per_dev, capacity=capacity,
-            backend=be, layout=layout,
+            layout=layout,
             can_shard_prims=_can_shard_prims(p, D),
             primitive_exchange=primitive_exchange,
             exchange_capacity=exchange_capacity, gather_pkg=False)
@@ -740,8 +732,7 @@ def make_sharded_train_step(
             sem_s = slab[:, :W, chc:chc + 1].permute(2, 0, 1)
         t_s = t[:, :W]
         # the sky on THIS slab's rays only: 1/D of the frame
-        bg = tr.env.image_background(sl(rays_b, 0), cam.world_view,
-                                     backend=be)
+        bg = tr.env.image_background(sl(rays_b, 0), cam.world_view)
         rendered = color + t_s[None] * bg
         total, logs = _slab_image_losses(
             rendered, depth_s, 1.0 - t_s, flow_img_s, sem_s, batch_sl, opt,
@@ -759,7 +750,7 @@ def make_sharded_train_step(
             radii, visible = rv[:, 0], rv[:, 1] > 0.5
         return total, logs, radii, visible, ex_overflow, nrend
 
-    def gathered_loss(tr, so, state, camera, batch, cam_rays, sh, be):
+    def gathered_loss(tr, so, state, camera, batch, cam_rays, sh):
         flow_time = batch.flow.time if batch.flow is not None else None
         pkg = sharded_render_images(
             tr.gaussians, state, config, camera, mesh, axis, env_map=tr.env,
@@ -767,18 +758,16 @@ def make_sharded_train_step(
             render_objmask=render_objmask, screen_offset=so,
             active_sh_degree=sh, inv_depth=inv_depth, capacity=capacity,
             primitive_exchange=primitive_exchange,
-            exchange_capacity=exchange_capacity, backend=be, layout=layout,
+            exchange_capacity=exchange_capacity, layout=layout,
             gather_pkg=False)
         total, logs = compute_losses(pkg, batch, tr.gaussians, state, config,
-                                     opt, frame_gap, scene_extent,
-                                     backend=be)
+                                     opt, frame_gap, scene_extent)
         return (total, logs, pkg["radii"], pkg["visibility_filter"],
                 pkg["exchange_overflow"], pkg["num_rendered"])
 
     def loss_and_grads(params, env, state, camera, batch, cam_rays,
                        active_sh_degree: int = 3) -> LossAndGrads:
         dev = params.scene_xyz.device
-        be = resolve_backend(backend, dev)
         trainables = TrainableState(gaussians=params, env=env)
         inputs = [x.detach().requires_grad_(True) for x in leaves(trainables)]
         tr = from_leaves(trainables, inputs)
@@ -786,15 +775,15 @@ def make_sharded_train_step(
                          dtype=torch.float32, device=dev, requires_grad=True)
         if loss_mode == "slab":
             total, logs, radii, vis, exo, nrend = slab_loss(
-                tr, so, state, camera, batch, cam_rays, active_sh_degree, be)
+                tr, so, state, camera, batch, cam_rays, active_sh_degree)
             # the image-free terms, replicated like the parameters
             g_total, g_logs = gaussian_term_losses(tr.gaussians, state, opt,
-                                                   frame_gap, backend=be)
+                                                   frame_gap)
             total = total + g_total
             logs = dict(logs, **g_logs, total_loss=total)
         else:
             total, logs, radii, vis, exo, nrend = gathered_loss(
-                tr, so, state, camera, batch, cam_rays, active_sh_degree, be)
+                tr, so, state, camera, batch, cam_rays, active_sh_degree)
         # the loss is one scalar held by every rank: seed 1 / ranks, and
         # the one flat all-reduce sums the ranks' shares
         grads = torch.autograd.grad(total * (1.0 / mesh.size), inputs + [so],

@@ -1,11 +1,9 @@
 """Public rasterizer API (counterpart of adgs_tpu/raster/api.py).
 
-Backends:
-  - "cuda":  the hand-written kernels (default for CUDA tensors; on CPU
-             tensors every kernel wrapper runs its plain twin);
-  - "torch": the plain PyTorch twins on any device.
-Instance layouts: "gather" (default) or "rows", the JAX package's
-ADGS_RM=0/1 (raster/render.py).
+Each kernel wrapper below chooses between its hand-written kernel and its
+plain PyTorch twin by `_kernels.use`: the kernel on CUDA tensors unless
+`_kernels.plain()` is on. Instance layouts: "gather" (default) or "rows",
+the JAX package's ADGS_RM=0/1 (raster/render.py).
 
 Differentiable with respect to the Gaussians' float inputs (and
 screen_offset). The binning is integer plumbing: it runs under
@@ -26,17 +24,6 @@ from . import preprocess as prep_lib
 from . import render as render_lib
 from .types import RasterOutput, RasterSettings
 
-BACKENDS = ("cuda", "torch")
-
-
-def resolve_backend(backend: Optional[str], device: torch.device) -> str:
-    if backend is None:
-        return "cuda" if device.type == "cuda" else "torch"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend: {backend}")
-    return backend
-
-
 def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
               scales: torch.Tensor, rotations: torch.Tensor,
               settings: RasterSettings,
@@ -46,7 +33,6 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
               semantic: Optional[torch.Tensor] = None,
               screen_offset: Optional[torch.Tensor] = None,
               active_mask: Optional[torch.Tensor] = None,
-              backend: Optional[str] = None,
               capacity: int = 1 << 18,
               stage_marks: Optional[list] = None,
               layout: str = "gather") -> RasterOutput:
@@ -54,21 +40,19 @@ def rasterize(means3d: torch.Tensor, opacities: torch.Tensor,
     "binning" and "compositing")."""
     if shs is None and colors_precomp is None:
         raise ValueError("either shs or colors_precomp is required")
-    backend = resolve_backend(backend, means3d.device)
     with span("render.preprocess"):
         prep = prep_lib.preprocess(means3d, scales, rotations, opacities,
                                    shs, settings,
                                    colors_precomp=colors_precomp,
                                    screen_offset=screen_offset,
-                                   active_mask=active_mask, backend=backend)
+                                   active_mask=active_mask)
     mark(stage_marks, "preprocess")
     with span("render.binning"), torch.no_grad():
-        binning = binning_lib.bin_gaussians(prep, settings, capacity,
-                                            backend=backend)
+        binning = binning_lib.bin_gaussians(prep, settings, capacity)
     mark(stage_marks, "binning")
     with span("render.compositing"):
         out = render_lib.render(prep, binning, settings,
                                 flow_points=flow_points, semantic=semantic,
-                                backend=backend, layout=layout)
+                                layout=layout)
     mark(stage_marks, "compositing")
     return out

@@ -84,8 +84,8 @@ def compact_live_torch(starts, tiles, rect_min, rect_max, depth_q,
 
 
 def compact_live(starts, tiles, rect_min, rect_max, depth_q, num_rendered):
-    """Kernel B2 on CUDA tensors; its plain twin on CPU tensors."""
-    if tiles.device.type == "cpu":
+    """Kernel B2, or its plain twin where `_kernels.use` says so."""
+    if not _kernels.use(tiles):
         return compact_live_torch(starts, tiles, rect_min, rect_max, depth_q,
                                   num_rendered)
     n = tiles.shape[0]
@@ -134,8 +134,8 @@ def expand_torch(table, n_live, num_rendered, capacity: int, grid_x: int,
 
 def expand(table, n_live, num_rendered, capacity: int, grid_x: int,
            d_bits: int, num_tiles: int):
-    """Kernel B1 on CUDA tensors; its plain twin on CPU tensors."""
-    if table.device.type == "cpu":
+    """Kernel B1, or its plain twin where `_kernels.use` says so."""
+    if not _kernels.use(table):
         return expand_torch(table, n_live, num_rendered, capacity, grid_x,
                             d_bits, num_tiles)
     n = table.shape[0]
@@ -155,15 +155,10 @@ def expand(table, n_live, num_rendered, capacity: int, grid_x: int,
     return key, gid
 
 
-EXPANDERS = {"cuda": (compact_live, expand),
-             "torch": (compact_live_torch, expand_torch)}
-
-
 def bin_gaussians(prep: Preprocessed, settings: RasterSettings,
-                  capacity: int, backend: str = "cuda") -> Binning:
-    """backend "cuda": kernels B2 and B1 (their plain twins on CPU
-    tensors); "torch": the plain twins on any device."""
-    compact, expand_fn = EXPANDERS[backend]
+                  capacity: int) -> Binning:
+    """Kernels B2 and B1 (`compact_live`, `expand`) between the eager
+    steps."""
     capacity = -(-capacity // INSTANCE_ALIGN) * INSTANCE_ALIGN
     tiles = prep.tiles_touched
     dev = tiles.device
@@ -188,10 +183,11 @@ def bin_gaussians(prep: Preprocessed, settings: RasterSettings,
     starts = offsets - tiles                                  # exclusive
     d_bits = depth_bits_for(num_tiles)
     depth_q = quantize_depth(prep.depth, num_tiles)
-    table, n_live = compact(starts, tiles, prep.rect_min.contiguous(),
-                            prep.rect_max.contiguous(), depth_q, num_rendered)
-    key, gid = expand_fn(table, n_live, num_rendered, capacity,
-                         settings.grid_x, d_bits, num_tiles)
+    table, n_live = compact_live(starts, tiles, prep.rect_min.contiguous(),
+                                 prep.rect_max.contiguous(), depth_q,
+                                 num_rendered)
+    key, gid = expand(table, n_live, num_rendered, capacity, settings.grid_x,
+                      d_bits, num_tiles)
 
     key_s, slot_s = torch.sort(key, stable=True)
     gid_s = gid[slot_s]

@@ -1,10 +1,10 @@
 """Per-Gaussian preprocessing: projection, covariance, conic, radii, tile
 rects (counterpart of adgs_tpu/raster/preprocess.py).
 
-`preprocess` runs kernel P1 (csrc/preprocess.cu) on CUDA tensors under
-backend "cuda", inside an autograd Function whose backward is kernel P2;
-under backend "torch", and on CPU tensors, it runs `preprocess_torch`, the
-plain version, which P1 matches bit for bit in its integer outputs.
+`preprocess` runs kernel P1 (csrc/preprocess.cu) where `_kernels.use`
+says kernel, inside an autograd Function whose backward is kernel P2;
+elsewhere it runs `preprocess_torch`, the plain version, which P1 matches
+bit for bit in its integer outputs.
 `preprocess_bwd_torch` is P2's plain twin.
 """
 
@@ -130,18 +130,14 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                shs: Optional[torch.Tensor], settings: RasterSettings,
                colors_precomp: Optional[torch.Tensor] = None,
                screen_offset: Optional[torch.Tensor] = None,
-               active_mask: Optional[torch.Tensor] = None,
-               backend: Optional[str] = None) -> Preprocessed:
+               active_mask: Optional[torch.Tensor] = None) -> Preprocessed:
     """screen_offset: [N, 2] zeros added to mean2d; its gradient is
     dL/dmean2d, which the densification statistics accumulate.
-    backend: "cuda" (P1, and P2 for the gradient, on CUDA tensors; the
-    plain version on CPU tensors), "torch" (the plain version) or None
-    (from the device). The kernels write rgb 0 for a slot that is not
+    P1, and P2 for the gradient, or the plain version, as `_kernels.use`
+    says for means3d. The kernels write rgb 0 for a slot that is not
     visible, a constant with no gradient; the plain version evaluates its
     SH colour all the same."""
-    if backend not in (None, "cuda", "torch"):
-        raise ValueError(f"unknown backend: {backend}")
-    if backend == "torch" or not means3d.is_cuda:
+    if not _kernels.use(means3d):
         return preprocess_torch(means3d, scales, rotations, opacities, shs,
                                 settings, colors_precomp=colors_precomp,
                                 screen_offset=screen_offset,

@@ -3,7 +3,7 @@ adgs_tpu/raster/pallas/render.py: composite_packed, its VJP and
 render_pallas).
 
 Four kernels, each beside its plain twin; a wrapper launches the kernel
-on CUDA tensors and runs the twin on CPU tensors:
+or runs the twin as `_kernels.use` says:
   - B3 `composite_fwd` (csrc/composite.cu) / `composite_fwd_torch`: packed
     per-Gaussian rows [N, F] (8 geometry columns: mean2d, conic,
     log-opacity, 2 pad; then ch features padded to a multiple of 8) ->
@@ -15,12 +15,14 @@ on CUDA tensors and runs the twin on CPU tensors:
     its presort slot `slot_sorted[r]` ([R, gc], gc = round8(6 + ch)); its
     blocks take the tiles longest first;
   - B5 `segment_sum` (csrc/segment_sum.cu) / `segment_sum_torch`: the sum
-    of each segment of contiguous rows; `segment_reduce_contiguous` turns
+    of each segment of contiguous rows; over `contiguous_bounds` it turns
     B4's presort rows into per-Gaussian gradients;
   - B6 `pad_to_lanes` (csrc/pad_lanes.cu) / `pad_to_lanes_torch`: the
     [F, N] -> [N_pad, 128] transposing lane pad of the rows layout.
 `CompositePacked` is the autograd Function over them: B3 forward, B4 then
-B5 backward ("cuda"), or the twins ("torch").
+B5 backward, or the twins, as its forward decided. A Function calls a
+kernel's wrapper only where it decided on the kernel, so that a count of
+wrapper calls counts launches.
 
 Instance layouts (`layout`, the JAX package's ADGS_RM=0/1):
   - "gather": B3 and B4 read instance r of a tile through gauss_id from
@@ -330,9 +332,9 @@ def _kernel_src(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
 def composite_fwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
                   grid_x: int, layout: str = "gather"):
-    """Kernel B3 on CUDA tensors; its plain twin on CPU tensors. `packed`
+    """Kernel B3, or its plain twin where `_kernels.use` says so. `packed`
     is the instance rows under layout "rows"."""
-    if packed.device.type == "cpu":
+    if not _kernels.use(packed):
         return composite_fwd_torch(packed, ch, gauss_id, tile_start,
                                    tile_count, grid_x, layout=layout)
     ld = _kernel_src(packed, ch, gauss_id, layout, "composite_fwd")
@@ -414,9 +416,9 @@ def composite_bwd(packed: torch.Tensor, ch: int, gauss_id: torch.Tensor,
                   tile_count: torch.Tensor, grid_x: int,
                   fwd_out: torch.Tensor, g_out: torch.Tensor,
                   layout: str = "gather") -> torch.Tensor:
-    """Kernel B4 on CUDA tensors; its plain twin on CPU tensors. `packed`
+    """Kernel B4, or its plain twin where `_kernels.use` says so. `packed`
     is the instance rows under layout "rows"."""
-    if packed.device.type == "cpu":
+    if not _kernels.use(packed):
         return composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
                                    tile_start, tile_count, grid_x, fwd_out,
                                    g_out, layout=layout)
@@ -441,12 +443,12 @@ def composite_bwd_into(rows: torch.Tensor, order: torch.Tensor,
     what the kernel writes: every row of `rows` [R, gc] (whatever it held
     before), and in `order` [T] int32 the order its blocks take the tiles
     in (by descending instance count, ties in tile order; each tile's rows
-    are the same in any order). On CPU tensors: the plain twin's rows and a
-    stable sort of the counts."""
+    are the same in any order). Where `_kernels.use` says twin: the plain
+    twin's rows and a stable sort of the counts."""
     T = tile_start.shape[0]
     R = gauss_id.shape[0]
     gc = grad_cols(ch)
-    if packed.device.type == "cpu":
+    if not _kernels.use(packed):
         rows.copy_(composite_bwd_torch(packed, ch, gauss_id, slot_sorted,
                                        tile_start, tile_count, grid_x,
                                        fwd_out, g_out, layout=layout))
@@ -484,10 +486,10 @@ def pad_to_lanes_torch(packed_t: torch.Tensor) -> torch.Tensor:
 
 
 def pad_to_lanes(packed_t: torch.Tensor) -> torch.Tensor:
-    """Kernel B6 on CUDA tensors; its plain twin on CPU tensors. packed_t
+    """Kernel B6, or its plain twin where `_kernels.use` says so. packed_t
     [F, N] f32 (F <= 128) is read by its strides, so packed.t() needs no
     copy."""
-    if packed_t.device.type == "cpu":
+    if not _kernels.use(packed_t):
         return pad_to_lanes_torch(packed_t)
     F, n = packed_t.shape
     if not 1 <= F <= LANES:
@@ -507,16 +509,15 @@ def pad_to_lanes(packed_t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def build_instances_rows(gauss_id: torch.Tensor, packed: torch.Tensor,
-                         backend: str = "cuda") -> torch.Tensor:
+def build_instances_rows(gauss_id: torch.Tensor,
+                         packed: torch.Tensor) -> torch.Tensor:
     """[R, 128] tile-ordered instance rows (counterpart of
     build_instances_rm): B6 lane-pads the packed [N, F] rows, then one row
     gather by gauss_id (an XLA gather in the JAX package, outside any
     Pallas kernel). The JAX package appends 256 rows of Gaussian 0 only
     to keep the TPU's last window DMA in bounds; no kernel here reads past
     row R, so they are left out."""
-    pad = pad_to_lanes if backend == "cuda" else pad_to_lanes_torch
-    wide = pad(packed.t())
+    wide = pad_to_lanes(packed.t())
     return torch.index_select(wide, 0, gauss_id.long())
 
 
@@ -532,11 +533,11 @@ def segment_sum_torch(rows: torch.Tensor,
 
 
 def segment_sum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
-    """Kernel B5 on CUDA tensors; its plain twin on CPU tensors. rows
+    """Kernel B5, or its plain twin where `_kernels.use` says so. rows
     [R, D] f32, bounds [n+1] int32 non-decreasing with bounds[n] <= R
     -> [n, D]. The kernel's scratch (a partial sum pair and one int per
     tile of rows) is allocated here."""
-    if rows.device.type == "cpu":
+    if not _kernels.use(rows):
         return segment_sum_torch(rows, bounds)
     R, D = rows.shape
     n = bounds.shape[0] - 1
@@ -569,37 +570,27 @@ def contiguous_bounds(gauss_start: torch.Tensor, num_rendered: torch.Tensor,
     return torch.minimum(ext, limit).contiguous()
 
 
-def segment_reduce_contiguous(rows: torch.Tensor, gauss_start: torch.Tensor,
-                              num_rendered: torch.Tensor,
-                              backend: str = "cuda") -> torch.Tensor:
-    """[R, gc] presort gradient rows -> [N, gc] per-Gaussian sums (B5, or
-    its twin with backend "torch")."""
-    seg = segment_sum if backend == "cuda" else segment_sum_torch
-    return seg(rows, contiguous_bounds(gauss_start, num_rendered,
-                                       rows.shape[0]))
-
-
 class CompositePacked(torch.autograd.Function):
     """Composite packed rows [N, F] through a Binning: (blended [T, ch, P],
-    final_t [T, P]), differentiable with respect to the rows. backend
-    "cuda": B3 forward, B4 + B5 backward, and B6 under layout "rows" (their
-    twins on CPU tensors); "torch": the twins on any device. layout:
+    final_t [T, P]), differentiable with respect to the rows: B3 forward,
+    B4 + B5 backward, and B6 under layout "rows", or their twins, as
+    `_kernels.use` says at the forward; the backward follows it. layout:
     "gather" or "rows" (module docstring)."""
 
     @staticmethod
     def forward(ctx, packed, binning: Binning, ch: int, grid_x: int,
-                backend: str, layout: str = "gather"):
+                layout: str = "gather"):
         _check_layout(layout)
+        ctx.kernel = _kernels.use(packed)
         src = packed
         if layout == "rows":
-            src = build_instances_rows(binning.gauss_id, packed, backend)
-        fwd = composite_fwd if backend == "cuda" else composite_fwd_torch
+            src = build_instances_rows(binning.gauss_id, packed)
+        fwd = composite_fwd if ctx.kernel else composite_fwd_torch
         blended, final_t = fwd(src, ch, binning.gauss_id, binning.tile_start,
                                binning.tile_count, grid_x, layout=layout)
         ctx.save_for_backward(src, torch.cat([blended, final_t[:, None]],
                                              dim=1))
-        ctx.binning, ctx.ch, ctx.grid_x, ctx.backend = (binning, ch, grid_x,
-                                                        backend)
+        ctx.binning, ctx.ch, ctx.grid_x = binning, ch, grid_x
         ctx.layout, ctx.packed_shape = layout, tuple(packed.shape)
         return blended, final_t
 
@@ -608,19 +599,21 @@ class CompositePacked(torch.autograd.Function):
         src, fwd_out = ctx.saved_tensors
         b, ch = ctx.binning, ctx.ch
         g_out = torch.cat([g_blended, g_final_t[:, None]], dim=1).contiguous()
-        bwd = composite_bwd if ctx.backend == "cuda" else composite_bwd_torch
-        rows = bwd(src, ch, b.gauss_id, b.slot_sorted, b.tile_start,
-                   b.tile_count, ctx.grid_x, fwd_out, g_out,
-                   layout=ctx.layout)
-        per = segment_reduce_contiguous(rows, b.gauss_start, b.num_rendered,
-                                        ctx.backend)
+        bwd, seg = ((composite_bwd, segment_sum) if ctx.kernel
+                    else (composite_bwd_torch, segment_sum_torch))
+        with _kernels.following(ctx.kernel):
+            rows = bwd(src, ch, b.gauss_id, b.slot_sorted, b.tile_start,
+                       b.tile_count, ctx.grid_x, fwd_out, g_out,
+                       layout=ctx.layout)
+            per = seg(rows, contiguous_bounds(b.gauss_start, b.num_rendered,
+                                              rows.shape[0]))
         n, F = ctx.packed_shape
         z = src.new_zeros
         pieces = [per[:, :N_GEOM_GRAD], z((n, F_GEOM - N_GEOM_GRAD)),
                   per[:, N_GEOM_GRAD:N_GEOM_GRAD + ch]]
         if F - F_GEOM - ch:
             pieces.append(z((n, F - F_GEOM - ch)))
-        return torch.cat(pieces, dim=-1), None, None, None, None, None
+        return torch.cat(pieces, dim=-1), None, None, None, None
 
 
 def tiles_to_image(tile_px: torch.Tensor,
@@ -637,7 +630,7 @@ def tiles_to_image(tile_px: torch.Tensor,
 def render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
            flow_points: Optional[torch.Tensor] = None,
            semantic: Optional[torch.Tensor] = None,
-           backend: str = "cuda", layout: str = "gather") -> RasterOutput:
+           layout: str = "gather") -> RasterOutput:
     """Composite a preprocessed frame through CompositePacked (counterpart
     of render_pallas) in the given instance layout; differentiable with
     respect to prep's floats, the flow points and the semantic feature."""
@@ -655,8 +648,7 @@ def render(prep: Preprocessed, binning: Binning, settings: RasterSettings,
     log_op = torch.log(torch.clamp(opac, min=OP_FLOOR))
     packed, _ = pack_gaussian_rows(prep.mean2d, prep.conic, log_op, features)
     blended, t_final = CompositePacked.apply(
-        packed, binning, features.shape[-1], settings.grid_x, backend,
-        layout)
+        packed, binning, features.shape[-1], settings.grid_x, layout)
     blended = blended.transpose(1, 2)                   # [T, P, CH]
 
     color_t = blended[..., :3] + t_final[..., None] * settings.bg

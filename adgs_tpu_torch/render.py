@@ -25,7 +25,7 @@ from .models.gaussians import (GaussianConfig, GaussianParams, GaussianState,
 from .profiling import span
 from .raster import binning as binning_lib
 from .raster import preprocess as prep_lib
-from .raster.api import rasterize, resolve_backend
+from .raster.api import rasterize
 from .raster.types import RasterSettings
 
 
@@ -45,28 +45,23 @@ def compute_binning(camera: Camera, params: GaussianParams,
                     state: GaussianState, config: GaussianConfig,
                     active_sh_degree: Optional[int] = None,
                     inv_depth: bool = True, scaling_modifier: float = 1.0,
-                    capacity: int = 1 << 18,
-                    backend: Optional[str] = None) -> binning_lib.Binning:
+                    capacity: int = 1 << 18) -> binning_lib.Binning:
     """The first half of a render: deform + preprocess (geometry only, no
     SH colour) + tile binning."""
     sh_degree = (active_sh_degree if active_sh_degree is not None
                  else config.sh_degree)
     settings = settings_for_camera(camera, sh_degree, inv_depth,
                                    scaling_modifier)
-    backend = resolve_backend(backend, params.scene_xyz.device)
     pkg = deformed_package(params, state, config, camera.time)
     prep = prep_lib.preprocess(pkg["xyz"], activated_scaling(params),
                                pkg["rotation"], pkg["opacity"], None,
-                               settings, active_mask=state.alive,
-                               backend=backend)
-    return binning_lib.bin_gaussians(prep, settings, capacity,
-                                     backend=backend)
+                               settings, active_mask=state.alive)
+    return binning_lib.bin_gaussians(prep, settings, capacity)
 
 
 def make_staged_render_fn(config: GaussianConfig,
                           active_sh_degree: Optional[int] = None,
                           inv_depth: bool = True,
-                          backend: Optional[str] = None,
                           capacity: int = 1 << 18,
                           render_objmask: bool = False,
                           layout: str = "gather"):
@@ -86,8 +81,8 @@ def make_staged_render_fn(config: GaussianConfig,
             return render(camera, params, state, config, env_map=env,
                           cam_rays=cam_rays, render_objmask=render_objmask,
                           active_sh_degree=active_sh_degree,
-                          inv_depth=inv_depth, backend=backend,
-                          capacity=capacity, stage_marks=stage_marks,
+                          inv_depth=inv_depth, capacity=capacity,
+                          stage_marks=stage_marks,
                           layout=layout)
 
     return full
@@ -103,7 +98,7 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
            screen_offset: Optional[torch.Tensor] = None,
            active_sh_degree: Optional[int] = None,
            inv_depth: bool = True, scaling_modifier: float = 1.0,
-           backend: Optional[str] = None, capacity: int = 1 << 18,
+           capacity: int = 1 << 18,
            stage_marks: Optional[list] = None,
            layout: str = "gather") -> dict[str, Any]:
     """screen_offset: [N, 2] zeros whose gradient is dL/dmean2d.
@@ -115,7 +110,6 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
                  else config.sh_degree)
     settings = settings_for_camera(camera, sh_degree, inv_depth,
                                    scaling_modifier)
-    backend = resolve_backend(backend, params.scene_xyz.device)
     mark(stage_marks, "start")
 
     with span("render.deform"):
@@ -135,14 +129,14 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
         shs=pkg["shs"] if override_color is None else None,
         colors_precomp=override_color, flow_points=flow_points,
         semantic=semantic, screen_offset=screen_offset,
-        active_mask=state.alive, backend=backend, capacity=capacity,
+        active_mask=state.alive, capacity=capacity,
         stage_marks=stage_marks, layout=layout)
 
     foreground = out.color
     with span("render.sky"):
         if env_map is not None and cam_rays is not None:
-            background = env_map.image_background(
-                cam_rays, camera.world_view, backend=backend)
+            background = env_map.image_background(cam_rays,
+                                                  camera.world_view)
             rendered = foreground + (1.0 - out.opacity) * background
         else:
             background = torch.zeros_like(foreground)

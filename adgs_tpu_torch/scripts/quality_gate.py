@@ -7,8 +7,8 @@ a known Gaussian world, and record the test-split PSNR curve as JSON.
         --eval_every 6 --width 48 --height 32 --n_frames 6 --n_gt 300
 
 The world is the JAX gate's, drawn from the same numpy seed in the same
-order; its renders go through the plain "torch" backend, so the targets do
-not depend on the kernels being trained with. Training is the port's
+order; its renders go through the plain twins (`_kernels.plain()`), so the
+targets do not depend on the kernels being trained with. Training is the port's
 Trainer with the JAX gate's OptimizationConfig, on the card unless
 --device says otherwise. A falling or flat curve fails the gate: a
 regression anywhere in the pipeline (binning, kernels, losses,
@@ -31,6 +31,7 @@ import tempfile
 import numpy as np
 import torch
 
+from .. import _kernels
 from .._device import resolve_device
 from ..core.camera import Camera, focal2fov
 from ..data import ply as ply_lib
@@ -108,9 +109,8 @@ def build_gt_scene(root: str, width: int, height: int, n_frames: int,
         cam = Camera.create(R=R[i, :3, :3], T=T[i, :3], fovx=fovx,
                             fovy=fovy, width=width, height=height, device=dev)
         settings = settings_for_camera(cam, sh_degree=3, inv_depth=True)
-        with torch.no_grad():
-            out = rasterize(settings=settings, backend="torch",
-                            capacity=GT_CAPACITY, **gt)
+        with torch.no_grad(), _kernels.plain():
+            out = rasterize(settings=settings, capacity=GT_CAPACITY, **gt)
         nr = int(out.num_rendered)
         if nr > GT_CAPACITY:
             raise RuntimeError(f"ground-truth render {i}: {nr} instances, "

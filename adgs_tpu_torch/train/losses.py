@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import _kernels
 from ..models.gaussians import GaussianConfig, GaussianParams, GaussianState
 from ..ops import depth as depth_ops
 from ..ops import flow as flow_ops
@@ -59,20 +60,22 @@ def sorted_group_rows(d_g: torch.Tensor, idx: torch.Tensor, n: int):
 
 class GroupGather(torch.autograd.Function):
     """values2d [No, D], idx [A, K] -> [A, K, D], with a sorted segmented
-    sum as its backward (B5 on CUDA tensors unless backend is "torch")."""
+    sum as its backward (B5, or its twin, as `_kernels.use` says at the
+    forward; the backward follows it)."""
 
     @staticmethod
-    def forward(ctx, values2d, idx, backend: str):
+    def forward(ctx, values2d, idx):
         ctx.save_for_backward(idx)
-        ctx.n, ctx.backend = values2d.shape[0], backend
+        ctx.n, ctx.kernel = values2d.shape[0], _kernels.use(values2d)
         return values2d[idx.long()]
 
     @staticmethod
     def backward(ctx, d_g):
         (idx,) = ctx.saved_tensors
         rows, _, bounds = sorted_group_rows(d_g, idx, ctx.n)
-        seg = segment_sum if ctx.backend == "cuda" else segment_sum_torch
-        return seg(rows, bounds), None, None
+        seg = segment_sum if ctx.kernel else segment_sum_torch
+        with _kernels.following(ctx.kernel):
+            return seg(rows, bounds), None
 
 
 def _group_variance(g2: torch.Tensor) -> torch.Tensor:
@@ -92,30 +95,27 @@ def _weighted_group_mean(var: torch.Tensor, shape, valid) -> torch.Tensor:
 
 
 def _group_variance_loss(values: torch.Tensor, idx: torch.Tensor,
-                         valid: torch.Tensor,
-                         backend: str = "cuda") -> torch.Tensor:
+                         valid: torch.Tensor) -> torch.Tensor:
     """Mean over groups of sum(var over group members): the KNN trajectory
     regularizer. values [No, ...], idx [A, K], valid [A]."""
     vflat = values.reshape(values.shape[0], -1)
-    var = _group_variance(GroupGather.apply(vflat, idx, backend))
+    var = _group_variance(GroupGather.apply(vflat, idx))
     return _weighted_group_mean(var, values.shape, valid)
 
 
-def _group_variance_pair(values_a, values_b, idx, valid,
-                         backend: str = "cuda"):
+def _group_variance_pair(values_a, values_b, idx, valid):
     """Both KNN regularizers through one gather and one backward (the
     flattened columns concatenate; the per-column math is independent)."""
     fa = values_a.reshape(values_a.shape[0], -1)
     fb = values_b.reshape(values_b.shape[0], -1)
     wa = fa.shape[1]
-    var = _group_variance(GroupGather.apply(torch.cat([fa, fb], dim=1), idx,
-                                            backend))
+    var = _group_variance(GroupGather.apply(torch.cat([fa, fb], dim=1), idx))
     return (_weighted_group_mean(var[:, :wa], values_a.shape, valid),
             _weighted_group_mean(var[:, wa:], values_b.shape, valid))
 
 
 def _knn_reg_losses(params: GaussianParams, state: GaussianState,
-                    opt: OptimizationConfig, backend: str = "cuda") -> dict:
+                    opt: OptimizationConfig) -> dict:
     """The active KNN-variance regularizers, fused into one gather when
     both are on."""
     want_r = opt.lambda_reg > 0.0
@@ -124,22 +124,21 @@ def _knn_reg_losses(params: GaussianParams, state: GaussianState,
     out: dict = {}
     if want_r and want_s:
         out["reg_loss"], out["sigma_reg_loss"] = _group_variance_pair(
-            params.xyz_deform, params.gs_time_sigma, idx, valid, backend)
+            params.xyz_deform, params.gs_time_sigma, idx, valid)
     elif want_r:
-        out["reg_loss"] = _group_variance_loss(params.xyz_deform, idx, valid,
-                                               backend)
+        out["reg_loss"] = _group_variance_loss(params.xyz_deform, idx, valid)
     elif want_s:
         out["sigma_reg_loss"] = _group_variance_loss(params.gs_time_sigma,
-                                                     idx, valid, backend)
+                                                     idx, valid)
     return out
 
 
 def _add_gaussian_terms(total, logs: dict, params: GaussianParams,
                         state: GaussianState, opt: OptimizationConfig,
-                        frame_gap: float, backend: str):
+                        frame_gap: float):
     """Add the per-Gaussian terms to `total` in the JAX package's order
     (regularizer, sigma prior, sigma regularizer)."""
-    reg_logs = _knn_reg_losses(params, state, opt, backend)
+    reg_logs = _knn_reg_losses(params, state, opt)
     logs.update(reg_logs)
     if "reg_loss" in reg_logs:
         total = total + opt.lambda_reg * reg_logs["reg_loss"]
@@ -156,25 +155,23 @@ def _add_gaussian_terms(total, logs: dict, params: GaussianParams,
 
 
 def gaussian_term_losses(params: GaussianParams, state: GaussianState,
-                         opt: OptimizationConfig, frame_gap: float,
-                         backend: str = "cuda") -> tuple[torch.Tensor, dict]:
+                         opt: OptimizationConfig,
+                         frame_gap: float) -> tuple[torch.Tensor, dict]:
     """The per-Gaussian (image-free) loss terms: KNN-variance regularizers
     and the time-sigma prior."""
     logs: dict = {}
     zero = torch.zeros((), dtype=torch.float32,
                        device=params.gs_time_sigma.device)
-    total = _add_gaussian_terms(zero, logs, params, state, opt, frame_gap,
-                                backend)
+    total = _add_gaussian_terms(zero, logs, params, state, opt, frame_gap)
     return total, logs
 
 
 def compute_losses(render_pkg: dict, batch: FrameBatch,
                    params: GaussianParams, state: GaussianState,
                    config: GaussianConfig, opt: OptimizationConfig,
-                   frame_gap: float, scene_extent: float,
-                   backend: str = "cuda") -> tuple[torch.Tensor, dict]:
-    """(total loss, {term: value}) of one frame. backend selects the
-    group gather's backward (B5 or its twin)."""
+                   frame_gap: float,
+                   scene_extent: float) -> tuple[torch.Tensor, dict]:
+    """(total loss, {term: value}) of one frame."""
     del config  # the same signature as the JAX package
     image = render_pkg["render"]
     logs = {}
@@ -212,7 +209,6 @@ def compute_losses(render_pkg: dict, batch: FrameBatch,
         total = total + opt.lambda_sky * sk
         logs["sky_loss"] = sk
 
-    total = _add_gaussian_terms(total, logs, params, state, opt, frame_gap,
-                                backend)
+    total = _add_gaussian_terms(total, logs, params, state, opt, frame_gap)
     logs["total_loss"] = total
     return total, logs

@@ -228,11 +228,11 @@ def adam_scalars(bc1, bc2) -> np.ndarray:
 
 
 def adam_leaves(ps, gs, ms, vs, lrs, bc1, bc2):
-    """`adam_leaves_torch` on CPU tensors; on CUDA tensors one launch of
-    adam_update_kernel over every leaf (each tensor float32, contiguous,
-    on one card), bitwise the twin. Fresh outputs: the callers keep the
-    old leaves."""
-    if ps[0].device.type == "cpu":
+    """One launch of adam_update_kernel over every leaf (each tensor
+    float32, contiguous, on one card), bitwise the twin, or
+    `adam_leaves_torch` where `_kernels.use` says so. Fresh outputs: the
+    callers keep the old leaves."""
+    if not _kernels.use(ps[0]):
         return adam_leaves_torch(ps, gs, ms, vs, lrs, bc1, bc2)
     dev = ps[0].device
     groups = list(zip(ps, gs, ms, vs))
@@ -258,9 +258,8 @@ def adam_update(trainables: TrainableState, grads: TrainableState,
                 opt_state: AdamState, lrs: TrainableState
                 ) -> tuple[TrainableState, AdamState]:
     """One Adam step of every leaf with its own learning rate
-    (`adam_leaves`: one kernel launch on CUDA tensors, the plain twin on
-    CPU tensors). The step count stays on the CPU, so the bias corrections
-    reach the card as scalars."""
+    (`adam_leaves`: one kernel launch, or the plain twin). The step count
+    stays on the CPU, so the bias corrections reach the card as scalars."""
     count, bc1, bc2 = next_count(opt_state.count)
     new_p, new_m, new_v = adam_leaves(
         leaves(trainables), leaves(grads), leaves(opt_state.m),

@@ -25,7 +25,6 @@ from ..core.camera import Camera
 from ..models.env_map import EnvironmentMap
 from ..models.gaussians import GaussianConfig, GaussianParams, GaussianState
 from ..profiling import span
-from ..raster.api import resolve_backend
 from ..render import render
 from .config import OptimizationConfig
 from .losses import FrameBatch, compute_losses
@@ -43,16 +42,13 @@ class LossAndGrads(NamedTuple):
 
 def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                     frame_gap: float, scene_extent: float,
-                    cameras_extent: float, backend: Optional[str] = None,
-                    capacity: int = 1 << 18, inv_depth: bool = True,
-                    layout: str = "gather"):
+                    cameras_extent: float, capacity: int = 1 << 18,
+                    inv_depth: bool = True, layout: str = "gather"):
     """Returns step(params, env, opt_state, state, camera, batch, cam_rays,
     iteration, active_sh_degree=3, stage_marks=None) -> (params, env,
     opt_state, state, logs). The step also carries `loss_and_grads`, its
     differentiable half (the JAX step's loss_fn under value_and_grad).
 
-    backend: "cuda" (the kernels; their twins on CPU tensors), "torch"
-    (the plain twins on any device) or None (from the parameters' device).
     layout: the compositor's instance layout, "gather" or "rows" (the JAX
     package's ADGS_RM=0/1); both give the same gradients bit for bit.
     stage_marks: a list to receive CUDA-event marks (adgs_tpu_torch._stages):
@@ -66,7 +62,6 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                        active_sh_degree: int = 3,
                        stage_marks: Optional[list] = None) -> LossAndGrads:
         dev = params.scene_xyz.device
-        be = resolve_backend(backend, dev)
         trainables = TrainableState(gaussians=params, env=env)
         inputs = [x.detach().requires_grad_(True) for x in leaves(trainables)]
         tr = from_leaves(trainables, inputs)
@@ -77,12 +72,11 @@ def make_train_step(config: GaussianConfig, opt: OptimizationConfig,
                      cam_rays=cam_rays, flow_time=flow_time,
                      render_objmask=render_objmask, screen_offset=so,
                      active_sh_degree=active_sh_degree, inv_depth=inv_depth,
-                     backend=be, capacity=capacity, stage_marks=stage_marks,
+                     capacity=capacity, stage_marks=stage_marks,
                      layout=layout)
         with span("step.losses"):
             total, logs = compute_losses(pkg, batch, tr.gaussians, state,
-                                         config, opt, frame_gap, scene_extent,
-                                         backend=be)
+                                         config, opt, frame_gap, scene_extent)
         mark(stage_marks, "losses")
         with span("step.backward"):
             # into each leaf's .grad, in the leaf's own (contiguous) layout,

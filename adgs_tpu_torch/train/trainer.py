@@ -126,9 +126,8 @@ class _NoLogger:
 
 
 class Trainer:
-    """backend: the port's render backend ("cuda", "torch", or None: from
-    the device). layout: the compositor's instance layout, "gather" or
-    "rows". device: None means the card (on a mesh: this rank's card).
+    """layout: the compositor's instance layout, "gather" or "rows".
+    device: None means the card (on a mesh: this rank's card).
 
     devices > 1: a "tile" mesh of that many ranks (tile-row sharding, the
     primitives sharded 1/D, routed by all-gather or, with
@@ -144,7 +143,6 @@ class Trainer:
                  env_resolution: int = 8192,
                  resolution: int = 1,
                  default_order_downsample_ratio: int = 3,
-                 backend: Optional[str] = None,
                  capacity: int = 1 << 18,
                  inv_depth: bool = True,
                  seed: int = 0,
@@ -186,7 +184,6 @@ class Trainer:
         self.scene = scene
         self.opt = opt
         self.model_path = model_path
-        self.backend = backend
         self.capacity = capacity
         self.inv_depth = inv_depth
         self.white_background = white_background
@@ -296,9 +293,8 @@ class Trainer:
             self._step_fn = make_sharded_train_step(
                 self.config, self.opt, self.scene.frame_gap,
                 self.scene.scene_extent, self.scene.cameras_extent,
-                mesh=self.mesh, backend=self.backend,
-                capacity=self.capacity, inv_depth=self.inv_depth,
-                layout=self.layout,
+                mesh=self.mesh, capacity=self.capacity,
+                inv_depth=self.inv_depth, layout=self.layout,
                 primitive_exchange=self.primitive_exchange,
                 exchange_capacity=self.exchange_capacity,
                 data_axis="data" if self.batch_cameras > 1 else None)
@@ -306,8 +302,8 @@ class Trainer:
         self._step_fn = make_train_step(
             self.config, self.opt, self.scene.frame_gap,
             self.scene.scene_extent, self.scene.cameras_extent,
-            backend=self.backend, capacity=self.capacity,
-            inv_depth=self.inv_depth, layout=self.layout)
+            capacity=self.capacity, inv_depth=self.inv_depth,
+            layout=self.layout)
 
     @property
     def render_capacity(self) -> int:
@@ -441,8 +437,8 @@ class Trainer:
     def _dump_failure_snapshot(self, it: int, fidx: int) -> str:
         """Repro capsule on a step failure: the full train state and the
         failing frame index, loadable with checkpoint.load_state to replay
-        the step (e.g. with backend "torch" to tell a kernel fault from a
-        model fault)."""
+        the step (e.g. under _kernels.plain() to tell a kernel fault from
+        a model fault)."""
         path = os.path.join(self.model_path, f"snapshot_fail_{it}.npz")
         if not self.is_main:
             return f"<rank {self.mesh.rank} writes no snapshot>"
@@ -622,8 +618,8 @@ class Trainer:
         if key not in self._frame_cache:
             self._frame_cache[key] = render_lib.make_staged_render_fn(
                 self.config, active_sh_degree=self.active_sh_degree,
-                inv_depth=self.inv_depth, backend=self.backend,
-                capacity=self.render_capacity, layout=self.layout)
+                inv_depth=self.inv_depth, capacity=self.render_capacity,
+                layout=self.layout)
         return self._frame_cache[key]
 
     def evaluate(self, it: int, max_frames: int = 10, max_panels: int = 3):

@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the last line is printed):
   4. the serving path: 8 requests through make_staged_render_fn
      (two camera poses, times spread over [0, 1]) with the launch counts
      reset just before; every output finite, no overflow, every serving
-     kernel launched; one frame held to the "torch" backend at 1e-4;
+     kernel launched; one frame held to the plain twins (the same render
+     under adgs_tpu_torch._kernels.plain()) at 1e-4;
   5. cli.render: the full-width model saved as a checkpoint (save_ply,
      env.npy, cfg_args.json) beside a 1242x375 KITTI-format scene, then
      adgs_tpu_torch.cli.render.main over both splits once per layout,
@@ -29,8 +30,9 @@ Phases (any failure exits non-zero before the last line is printed):
      (OptimizationConfig() defaults, every loss term on, SH degree 3,
      iteration 1000) with the launch counts reset just before; losses
      finite, no overflow, all seven kernels launched; one step held to
-     the "torch" backend (logs 1e-4, gradients rtol 5e-3 atol 2e-5,
-     updated parameters as tests/test_torch_train.py, statistics); one
+     the same step under _kernels.plain(), every twin, Adam's included
+     (logs 1e-4, gradients rtol 5e-3 atol 2e-5, updated parameters as
+     tests/test_torch_train.py, statistics); one
      step run twice from the same inputs, and one step in the rows
      layout, every updated tensor bitwise equal to the first;
   8. training in both layouts in turns, AB_ROUNDS turns of 3 steps;
@@ -401,6 +403,7 @@ def size_capacity(cfg, params, state, cams) -> tuple[int, int]:
 
 def frame_inputs(cfg, params, state, cam, capacity: int):
     """Settings, full Preprocessed (with SH colour) and Binning of a frame."""
+    from adgs_tpu_torch import _kernels
     from adgs_tpu_torch.models.gaussians import (activated_scaling,
                                                  deformed_package)
     from adgs_tpu_torch.raster.binning import bin_gaussians
@@ -410,7 +413,8 @@ def frame_inputs(cfg, params, state, cam, capacity: int):
     pkg = deformed_package(params, state, cfg, cam.time)
     prep = preprocess(pkg["xyz"], activated_scaling(params), pkg["rotation"],
                       pkg["opacity"], pkg["shs"], st, active_mask=state.alive)
-    return st, prep, bin_gaussians(prep, st, capacity, backend="torch")
+    with _kernels.plain():
+        return st, prep, bin_gaussians(prep, st, capacity)
 
 
 def composite_rows(cfg, params, prep, flow_time, ch):
@@ -2129,14 +2133,14 @@ def train_inputs(device, seed, params, state, width, height):
     return batch, state
 
 
-def make_step(cfg, capacity, backend=None, layout="gather"):
+def make_step(cfg, capacity, layout="gather"):
     from adgs_tpu_torch.train.config import OptimizationConfig
     from adgs_tpu_torch.train.step import make_train_step
     return make_train_step(cfg, OptimizationConfig(),
                            frame_gap=1.0 / FRAME_NUM,
                            scene_extent=SCENE_EXTENT,
                            cameras_extent=CAMERAS_EXTENT, capacity=capacity,
-                           backend=backend, layout=layout)
+                           layout=layout)
 
 
 def train_phase(step, start, cam, batch, rays, steps=STEPS):
@@ -2179,28 +2183,32 @@ def _named_leaves(tr):
     return list(zip(names, leaves(tr)))
 
 
-def check_torch_backend(step, step_t, start, cam, batch, rays):
-    """One step from `start` through the kernels and through the plain
-    twins, held to tests/test_torch_train.py's bars."""
+def check_plain_step(step, start, cam, batch, rays):
+    """One step from `start` through the kernels and again under
+    _kernels.plain() (every twin, Adam's included), held to
+    tests/test_torch_train.py's bars."""
     import torch
+    from adgs_tpu_torch import _kernels
     from adgs_tpu_torch.train.config import OptimizationConfig
     from adgs_tpu_torch.train.optim import TrainableState, leaves, lr_tree
 
     p, e, o, s = start
     args = (p, e, s, cam, batch, rays)
     lg_k = step.loss_and_grads(*args)
-    lg_t = step_t.loss_and_grads(*args)
+    with _kernels.plain():
+        lg_t = step.loss_and_grads(*args)
     for k in lg_k.logs:
-        check_close(f"train {k} vs the torch backend", lg_k.logs[k],
+        check_close(f"train {k} vs the plain step", lg_k.logs[k],
                     lg_t.logs[k], 0.0, 1e-4)
     if not torch.equal(lg_k.num_rendered, lg_t.num_rendered):
-        raise AssertionError("num_rendered disagrees with the torch backend")
+        raise AssertionError("num_rendered disagrees with the plain step")
     for (name, gk), (_, gt) in zip(_named_leaves(lg_k.grads),
                                    _named_leaves(lg_t.grads)):
-        check_close(f"train grad {name} vs the torch backend", gk, gt,
+        check_close(f"train grad {name} vs the plain step", gk, gt,
                     2e-5, 5e-3)
     out_k = step(p, e, o, s, cam, batch, rays, ITERATION)
-    out_t = step_t(p, e, o, s, cam, batch, rays, ITERATION)
+    with _kernels.plain():
+        out_t = step(p, e, o, s, cam, batch, rays, ITERATION)
     # Adam's first step is lr * g / |g|: where the gradient is rounding
     # noise its sign may flip and the parameter move by 2 lr
     lrs = leaves(lr_tree(OptimizationConfig(), SCENE_EXTENT, CAMERAS_EXTENT,
@@ -2215,18 +2223,18 @@ def check_torch_backend(step, step_t, start, cam, batch, rays):
         diff = (pk - pt).abs()
         worst = max(worst, float(diff.max()))
         if not bool((diff <= bound).all()):
-            raise AssertionError(f"updated {name} disagrees with the torch "
-                                 f"backend: max |diff| {float(diff.max())}")
-    log(f"  updated parameters vs the torch backend: max |diff| {worst:.3e} "
+            raise AssertionError(f"updated {name} disagrees with the plain "
+                                 f"step: max |diff| {float(diff.max())}")
+    log(f"  updated parameters vs the plain step: max |diff| {worst:.3e} "
         "(atol 1e-5, 2 lr where |g| < 2e-5) ok")
     sk, st_ = out_k[3], out_t[3]
     for name in ("denom", "max_radii2d"):
         same = bool(torch.equal(getattr(sk, name), getattr(st_, name)))
-        log(f"  stats {name} vs the torch backend: "
+        log(f"  stats {name} vs the plain step: "
             f"{'bitwise equal' if same else 'DIFFER'}")
         if not same:
-            raise AssertionError(f"{name} disagrees with the torch backend")
-    check_close("stats xyz_grad_accum vs the torch backend",
+            raise AssertionError(f"{name} disagrees with the plain step")
+    check_close("stats xyz_grad_accum vs the plain step",
                 sk.xyz_grad_accum, st_.xyz_grad_accum, 2e-5, 5e-3)
     return out_k
 
@@ -2625,7 +2633,7 @@ def preprocess_phase(dev, seed: int) -> dict:
         args = (t["means3d"], t["scales"], t["rotations"], t["opacities"],
                 t["shs"], st)
         kw = dict(screen_offset=so, active_mask=active)
-        got = prep.preprocess(*args, backend="cuda", **kw)
+        got = prep.preprocess(*args, **kw)
         want = prep.preprocess_torch(*args, **kw)
         vis = want.visible
         n_vis = int(vis.sum())
@@ -4456,6 +4464,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
     the trainer's and the gate's lines); returns the kernels line's
     entries."""
     import torch
+    from adgs_tpu_torch import _kernels
     from adgs_tpu_torch.render import make_staged_render_fn
     from adgs_tpu_torch.train.optim import TrainableState, init_adam
 
@@ -4490,10 +4499,11 @@ def run(dev, seed: int, card: str = "no card") -> list:
             raise AssertionError(f"frame {i}: instance overflow "
                                  f"({int(out['num_rendered'])} > {capacity})")
     check_outputs(outs, reqs, WIDTH, HEIGHT)
-    plain = make_staged_render_fn(cfg, capacity=capacity, backend="torch")(
-        reqs[0], params, state, env, rays)
+    with _kernels.plain():
+        plain = make_staged_render_fn(cfg, capacity=capacity)(
+            reqs[0], params, state, env, rays)
     for k in ("render", "foreground", "background", "depth", "img_opacity"):
-        check_close(f"frame 0 {k} vs the torch backend", outs[0][k],
+        check_close(f"frame 0 {k} vs the plain render", outs[0][k],
                     plain[k], 1e-4, 1e-4)
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del outs, plain
@@ -4542,8 +4552,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
     log("# losses per step: " + json.dumps(
         [round(float(lg["total_loss"]), 6) for lg in logs]) + "; last "
         + json.dumps({k: round(float(v), 6) for k, v in logs[-1].items()}))
-    first = check_torch_backend(step, make_step(cfg, capacity, "torch"),
-                                start, train_cam, batch, rays)
+    first = check_plain_step(step, start, train_cam, batch, rays)
     check_repeat(step, start, train_cam, batch, rays, first)
     step_rows = make_step(cfg, capacity, layout="rows")
     check_repeat(step_rows, start, train_cam, batch, rays, first,

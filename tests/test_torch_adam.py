@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from adgs_tpu_torch import _kernels
 from adgs_tpu_torch.parallel import shard
 from adgs_tpu_torch.train import optim as topt
 from adgs_tpu_torch.train.config import OptimizationConfig
@@ -127,9 +128,10 @@ def test_adam_scalars():
     assert s[5] == np.float32(1) / bc2.numpy()
 
 
-def test_adam_update_rejects_mixed_devices():
-    """Off the CPU every leaf has to be on the first one's device, checked
-    before anything is built or launched."""
+def test_adam_update_rejects_mixed_devices(monkeypatch):
+    """On the kernel's path every leaf has to be on the first one's
+    device, checked before anything is built or launched."""
+    monkeypatch.setattr(_kernels, "use", lambda t: True)
     tr = _tiny_state()
     meta = topt.from_leaves(tr, [x.to("meta") for x in topt.leaves(tr)])
     st = topt.init_adam(tr)

@@ -26,6 +26,7 @@ from adgs_tpu.models.env_map import EnvironmentMap
 from adgs_tpu.ops.knn import mean_knn_sq_dist
 from adgs_tpu.train import checkpoint as jckpt
 from adgs_tpu.train.config import OptimizationConfig
+from adgs_tpu_torch import _kernels
 from adgs_tpu_torch.cli import common as tcommon
 from adgs_tpu_torch.cli import render as trender_cli
 from adgs_tpu_torch.data.ply import read_ply
@@ -147,11 +148,12 @@ def test_cfg_args_backend_names(model_dir):
     assert model_cfg.capacity == 1 << 14 and model_cfg.order_args == ORDER
     assert opt == tcommon.OptimizationConfig(**json.load(open(os.path.join(
         model_dir, "cfg_args.json")))["opt"])
-    assert [tcommon.render_backend(b) for b in
-            ("auto", "pallas", "xla", "reference")] == [None, "cuda",
-                                                        "torch", "torch"]
+    for name, plain in (("auto", 0), ("pallas", 0), ("xla", 1),
+                        ("reference", 1)):
+        with tcommon.backend_context(name):
+            assert _kernels._plain == plain, name
     with pytest.raises(ValueError):
-        tcommon.render_backend("mosaic")
+        tcommon.backend_context("mosaic")
 
 
 def test_config_layers_match_jax(tmp_path):

@@ -72,18 +72,16 @@ def test_plain_matches_pallas_and_reference(rng, extra):
     ps = port_settings(js)
     tflow = None if flow is None else _t(flow)
     tsem = None if sem is None else _t(sem)
-    for backend in ("torch", "cuda"):
-        out = trender.render(tprep, tb, ps, flow_points=tflow, semantic=tsem,
-                             backend=backend)
-        _compare(out, pal, names)
-        _compare(out, ref, names)
+    out = trender.render(tprep, tb, ps, flow_points=tflow, semantic=tsem)
+    _compare(out, pal, names)
+    _compare(out, ref, names)
     np.testing.assert_array_equal(out.radii.numpy(), np.asarray(pal.radii))
 
 
 def test_saturated_early_exit(rng):
     js, jp, jb, tprep, tb = _case(rng, saturated=True)
     pal = jpal.render_pallas(jp, jb, js)
-    out = trender.render(tprep, tb, port_settings(js), backend="torch")
+    out = trender.render(tprep, tb, port_settings(js))
     _compare(out, pal, ["color", "opacity", "depth"])
     # the termination gate really fired: the loop skipped instances
     _, _, pairs = trender.composite_fwd_torch(

@@ -50,8 +50,7 @@ def _scene(rng, kind):
     feats = _features(rng, tprep, ch)
     if kind == "overflow":
         nr = int(tb.num_rendered)
-        tb = tbin.bin_gaussians(tprep, port_settings(js), nr // 2,
-                                backend="torch")
+        tb = tbin.bin_gaussians(tprep, port_settings(js), nr // 2)
         assert bool(tb.overflow) and tb.gauss_id.shape[0] < nr
     return js, jb, tprep, tb, _packed(tprep, feats), ch
 
@@ -66,7 +65,7 @@ def _cotangents(rng, T, ch):
 
 def _port_grad(packed, tb, ch, grid_x, gb, gt):
     p = packed.clone().requires_grad_(True)
-    blended, final_t = trender.CompositePacked.apply(p, tb, ch, grid_x, "cuda")
+    blended, final_t = trender.CompositePacked.apply(p, tb, ch, grid_x)
     (d,) = torch.autograd.grad(
         (blended * torch.as_tensor(gb)).sum()
         + (final_t * torch.as_tensor(gt)).sum(), p)
@@ -170,9 +169,9 @@ def test_segment_reduce_contiguous_clips_at_capacity(rng):
     nr = int(tiles.sum())
     assert nr > R
     rows = rng.normal(size=(R, 16)).astype(np.float32)
-    got = trender.segment_reduce_contiguous(
-        torch.as_tensor(rows), torch.as_tensor(start),
-        torch.tensor(nr, dtype=torch.int32)).numpy()
+    got = trender.segment_sum(torch.as_tensor(rows), trender.contiguous_bounds(
+        torch.as_tensor(start), torch.tensor(nr, dtype=torch.int32),
+        R)).numpy()
     want = np.zeros((n, 16), np.float64)
     for i in range(n):
         lo, hi = min(start[i], R), min(start[i] + tiles[i], R)

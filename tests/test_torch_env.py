@@ -98,7 +98,7 @@ def test_create_matches():
 
 def _sky_grad_port(grid, coords, g):
     t = torch.as_tensor(grid).requires_grad_(True)
-    out = tgs.GridSample.apply(t, torch.as_tensor(coords), "cuda")
+    out = tgs.GridSample.apply(t, torch.as_tensor(coords))
     (d,) = torch.autograd.grad((out * torch.as_tensor(g)).sum(), t)
     return d.numpy()
 
@@ -133,6 +133,6 @@ def test_sky_grad_matches_jax(rng, path):
         tgs.grid_sample_bwd(torch.as_tensor(g), torch.as_tensor(coords),
                             grid.shape).numpy(), got)
     c = torch.as_tensor(coords).requires_grad_(True)
-    out = tgs.GridSample.apply(torch.as_tensor(grid), c, "cuda")
+    out = tgs.GridSample.apply(torch.as_tensor(grid), c)
     (dc,) = torch.autograd.grad(out.sum(), c, allow_unused=True)
     assert dc is None

@@ -131,10 +131,10 @@ def _program_step(spec, opt, frame_gap, scene_extent, cameras_extent, ref,
     batch = FrameBatch(image=image, depth=depth, sky=sky, semantic=semantic)
     batch = batch._replace(flow=flow_package(flows[0], device=dev),
                            flow_valid=torch.tensor(True, device=dev))
-    nr = int(compute_binning(cam, params, state, cfg, capacity=1 << 10,
-                             backend="torch").num_rendered)
+    nr = int(compute_binning(cam, params, state, cfg,
+                             capacity=1 << 10).num_rendered)
     step = step_mod.make_train_step(
-        cfg, opt, frame_gap, scene_extent, cameras_extent, backend="torch",
+        cfg, opt, frame_gap, scene_extent, cameras_extent,
         capacity=scene.instance_capacity(nr))
     opt_state = init_adam(TrainableState(params, env))._replace(
         count=torch.tensor(it - 1, dtype=torch.int32))

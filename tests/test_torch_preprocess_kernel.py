@@ -6,7 +6,7 @@ degrees, precomputed colours, with and without screen_offset, and slots
 that are dead, behind the camera, below the 1/255 gate, frustum-clamped,
 clamped to rgb 0 (also exactly at 0) and at det == 0 or near it, and
 with rgb taken as P1 writes it (0 off the visible slots); and the plain
-path that backend "torch" and CPU tensors take, bitwise the frozen copy
+path that CPU tensors and `_kernels.plain()` take, bitwise the frozen copy
 of the plain tier (port_bench/reference/plain) in outputs and gradients.
 On the card (the `card` fixture skips them elsewhere; run with
 `python -m pytest --noconftest tests/test_torch_preprocess_kernel.py`):
@@ -295,24 +295,22 @@ def frozen_plain():
     return frozen
 
 
-@pytest.mark.parametrize("backend", ["torch", "cuda", None])
-def test_cpu_path_bitwise_frozen_plain(backend):
-    """backend "torch", and CPU tensors under any backend, run today's
-    plain version: outputs and gradients bitwise the frozen copy's."""
+def test_cpu_path_bitwise_frozen_plain():
+    """CPU tensors run today's plain version: outputs and gradients
+    bitwise the frozen copy's."""
     frozen = frozen_plain()
     rng = np.random.default_rng(5)
     st = make_settings()
     g, active = make_gaussians(rng, 512, 160, 96, 120.0)
     cots, _ = cotangents(rng, 512)
     runs = []
-    for fn, kw in ((prep.preprocess, dict(backend=backend)),
-                   (frozen.preprocess, {})):
+    for fn in (prep.preprocess, frozen.preprocess):
         leaves = {k: torch.as_tensor(g[k]).clone().requires_grad_(True)
                   for k in g if k != "opacities"}
         so = torch.zeros((512, 2), requires_grad=True)
         out = fn(leaves["means3d"], leaves["scales"], leaves["rotations"],
                  torch.as_tensor(g["opacities"]), leaves["shs"], st,
-                 screen_offset=so, active_mask=torch.as_tensor(active), **kw)
+                 screen_offset=so, active_mask=torch.as_tensor(active))
         loss = sum((c * getattr(out, f)).sum()
                    for c, f in zip(cots, GRAD_FIELDS))
         grads = torch.autograd.grad(loss, list(leaves.values()) + [so])
@@ -362,9 +360,10 @@ def test_p1_matches_plain_on_card(card, cam):
             t["shs"], st)
     kw = dict(screen_offset=so, active_mask=active)
     _kernels.reset_launches()
-    got = prep.preprocess(*args, backend="cuda", **kw)
+    got = prep.preprocess(*args, **kw)
     assert _kernels.launches["preprocess"] == 1
-    want = prep.preprocess(*args, backend="torch", **kw)
+    with _kernels.plain():
+        want = prep.preprocess(*args, **kw)
     for f in INT_FIELDS + FLOAT_FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     vis = want.visible

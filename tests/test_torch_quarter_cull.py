@@ -48,8 +48,7 @@ def _binned(saturated):
                             ("means3d", "scales", "rotations", "opacities")),
                           torch.as_tensor(g["shs"]), ps,
                           active_mask=torch.as_tensor(active))
-    tb = tbin.bin_gaussians(tp, ps, int(tp.tiles_touched.sum()) + 512,
-                            backend="torch")
+    tb = tbin.bin_gaussians(tp, ps, int(tp.tiles_touched.sum()) + 512)
     return tp, tb, ps.grid_x
 
 

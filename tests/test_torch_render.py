@@ -16,7 +16,7 @@ from adgs_tpu import render as jrender
 from adgs_tpu.core.camera import Camera as JCamera
 from adgs_tpu.models.env_map import EnvironmentMap as JEnv
 from adgs_tpu.models.env_map import camera_rays
-from adgs_tpu_torch import convert
+from adgs_tpu_torch import _kernels, convert
 from adgs_tpu_torch import render as trender
 from adgs_tpu_torch.core.camera import Camera as TCamera
 from tests.test_torch_gaussians import _jax_model, _port_model
@@ -58,10 +58,10 @@ def test_render_matches_jax(rng, t):
     np.testing.assert_array_equal(port["radii"].numpy(),
                                   np.asarray(ref["radii"]))
     assert float(port["img_opacity"].max()) > 0.5   # the scene is on screen
-    # the plain backend agrees with the kernel backend's CPU twins
-    plain = trender.make_staged_render_fn(cfg, capacity=1 << 14,
-                                          backend="torch")(
-        tcam, tp, ts, tenv, torch.as_tensor(rays))
+    # the plain override agrees with the wrappers' CPU twins
+    with _kernels.plain():
+        plain = trender.make_staged_render_fn(cfg, capacity=1 << 14)(
+            tcam, tp, ts, tenv, torch.as_tensor(rays))
     np.testing.assert_array_equal(plain["render"].numpy(),
                                   port["render"].numpy())
 
@@ -98,8 +98,9 @@ def test_default_device_needs_cuda(monkeypatch):
                        width=8, height=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.env_from_numpy(np.zeros((3, 4, 4), np.float32))
-    # a kernel wrapper refuses a tensor that is neither CPU nor CUDA
+    # a kernel wrapper sent to its kernel refuses a tensor off the card
     from adgs_tpu_torch.ops.grid_sample import grid_sample
+    monkeypatch.setattr(_kernels, "use", lambda t: True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         grid_sample(torch.zeros(3, 4, 4, device="meta"),
                     torch.zeros(2, 2, 2, device="meta"))

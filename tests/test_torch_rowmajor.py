@@ -76,22 +76,20 @@ def test_rows_render_matches_jax_rm(rng, monkeypatch, extra):
     ps = port_settings(js)
     kw = dict(flow_points=None if flow is None else torch.as_tensor(flow),
               semantic=None if sem is None else torch.as_tensor(sem))
-    for backend in ("torch", "cuda"):
-        rows = trender.render(tprep, tb, ps, backend=backend, layout="rows",
-                              **kw)
-        gather = trender.render(tprep, tb, ps, backend=backend, **kw)
-        for name in names:
-            got = getattr(rows, name).numpy()
-            np.testing.assert_allclose(got, np.asarray(getattr(pal, name)),
-                                       err_msg=name, **TOL)
-            np.testing.assert_array_equal(got, getattr(gather, name).numpy(),
-                                          err_msg=name)
+    rows = trender.render(tprep, tb, ps, layout="rows", **kw)
+    gather = trender.render(tprep, tb, ps, **kw)
+    for name in names:
+        got = getattr(rows, name).numpy()
+        np.testing.assert_allclose(got, np.asarray(getattr(pal, name)),
+                                   err_msg=name, **TOL)
+        np.testing.assert_array_equal(got, getattr(gather, name).numpy(),
+                                      err_msg=name)
 
 
 def _d_packed(packed, tb, ch, grid_x, gb, gt, layout):
     p = packed.clone().requires_grad_(True)
     blended, final_t = trender.CompositePacked.apply(p, tb, ch, grid_x,
-                                                     "cuda", layout)
+                                                     layout)
     (d,) = torch.autograd.grad(
         (blended * torch.as_tensor(gb)).sum()
         + (final_t * torch.as_tensor(gt)).sum(), p)
