@@ -61,7 +61,8 @@ LOG_ALPHA_MIN_SAFE = float(torch.tensor(-5.6, dtype=torch.float32))
 T_EPS_F32 = float(torch.tensor(composite_mod.T_EPS, dtype=torch.float32))
 # plain twins: elements of one [tiles, 256, instances] temporary
 PLAIN_BATCH_ELEMS = 1 << 25
-SEG_TILE_ROWS = 64   # rows of one of B5's tiles (csrc/segment_sum.cu)
+SEG_ITEMS = 512      # rows and segment ends of one of B5's blocks
+SEG_FAN = 32         # B5's partials a group, at each level (csrc/segment_sum.cu)
 
 
 def _round8(x: int) -> int:
@@ -532,11 +533,23 @@ def segment_sum_torch(rows: torch.Tensor,
     return (cs[b[1:]] - cs[b[:-1]]).to(rows.dtype)
 
 
+def _segment_sum_partials(R: int, n: int) -> int:
+    """The partial sums B5 keeps for R rows and n segments: one a block of
+    SEG_ITEMS rows and ends, then one a group of SEG_FAN of the level
+    below, level by level until a level fits in one group."""
+    size = max(1, -(-(n + R) // SEG_ITEMS))
+    total = size
+    while size > SEG_FAN:
+        size = -(-size // SEG_FAN)
+        total += size
+    return total
+
+
 def segment_sum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     """Kernel B5, or its plain twin where `_kernels.use` says so. rows
     [R, D] f32, bounds [n+1] int32 non-decreasing with bounds[n] <= R
-    -> [n, D]. The kernel's scratch (a partial sum pair and one int per
-    tile of rows) is allocated here."""
+    -> [n, D]. The kernel's scratch (`_segment_sum_partials` rows of D
+    floats and one int each) is allocated here."""
     if not _kernels.use(rows):
         return segment_sum_torch(rows, bounds)
     R, D = rows.shape
@@ -546,13 +559,13 @@ def segment_sum(rows: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, D), dtype=torch.float32, device=rows.device)
     if n <= 0 or D == 0:
         return out
-    tile = SEG_TILE_ROWS
-    tiles = max(1, -(-R // tile))
-    part = torch.empty(tiles * 2 * D, dtype=torch.float32, device=rows.device)
-    meta = torch.empty(tiles + 1, dtype=torch.int32, device=rows.device)
+    s = _segment_sum_partials(R, n)
+    part = torch.empty(s * D, dtype=torch.float32, device=rows.device)
+    meta = torch.empty(s, dtype=torch.int32, device=rows.device)
     err = _kernels.entry("segment_sum", "adgs_segment_sum", "piipiipppp")(
-        rows.data_ptr(), R, D, bounds.data_ptr(), n, tile, out.data_ptr(),
-        part.data_ptr(), meta.data_ptr(), _kernels.stream(rows))
+        rows.data_ptr(), R, D, bounds.data_ptr(), n, SEG_ITEMS,
+        out.data_ptr(), part.data_ptr(), meta.data_ptr(),
+        _kernels.stream(rows))
     _kernels.check(err, "segment_sum")
     _kernels.launches["segment_sum"] += 1
     return out

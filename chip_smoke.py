@@ -100,7 +100,11 @@ Phases (any failure exits non-zero before the last line is printed):
      C = 1; its device time logged by part beside F.grid_sample's
      gradient); B5 also on synthetic bounds (a 100,000-row segment,
      all segments empty, bounds[0] > 0 with bounds[n] < R; D in 1, 3,
-     16, 33, 98), each case launched twice and bitwise equal; in the rows
+     16, 33, 98), each case launched twice and bitwise equal, and timed
+     at the train cells' patterns (b5_train_pattern: the compositing
+     backward's 2,007,040 slots with their run of 700,832 empty ones at
+     0.66 M and 1.48 M rows of D 16, the KNN rows with 306,208 in segment
+     0 at D 89 and 137); in the rows
      instance layout (ADGS_RM=1), B6 lane pad bitwise against its twin
      and F.pad, B3 and B4 bitwise against their gather layout; A1 Adam
      (csrc/adam.cu, one launch over every leaf) bitwise its plain twin on
@@ -733,11 +737,59 @@ def check_segment_sum(label, rows, bounds) -> float:
     return check_close(label, per, per_p, 1e-6 * scale, 1e-6)
 
 
-def segment_sum_cases(dev, seed) -> None:
+# the train cells' slots (port_bench/scene.py sizes(spec, 2)): the scene
+# block, its alive part, the object block, its alive part
+B5_SCENE_SLOTS, B5_SCENE_ALIVE = 1_400_832, 700_000
+B5_OBJ_SLOTS, B5_OBJ_ALIVE = 606_208, 300_000
+B5_KNN_K = 8              # members of a KNN group
+
+
+def b5_train_pattern(rng, kind: str, rows_used: int = 0):
+    """(R, bounds [n+1] int32) of B5 at a train cell's shape, from the
+    numpy Generator rng. "composite": the compositing backward over the
+    slots [scene | object], each block alive then dead, so the dead scene
+    slots are a run of 700,832 empty segments in the middle and the dead
+    object slots a tail at bounds[n]; each alive slot takes a geometric
+    count of rows (mean rows_used / alive: 0.66 M or 1.48 M in all) and
+    the rows end at 92% of R, as the instance capacity leaves them.
+    "knn": the KNN group gather's rows, one per member of the object
+    block's anchors (obj slots / 8 groups of 8), the valid ones (alive /
+    8) on random alive values and the rest on value 0 (ops/knn.py), over
+    n = the object slots."""
+    if kind == "composite":
+        alive = B5_SCENE_ALIVE + B5_OBJ_ALIVE
+        p = 1.0 / (1.0 + rows_used / alive)
+        lens = np.zeros(B5_SCENE_SLOTS + B5_OBJ_SLOTS, np.int64)
+        tiles = rng.geometric(p, size=alive) - 1
+        lens[:B5_SCENE_ALIVE] = tiles[:B5_SCENE_ALIVE]
+        lens[B5_SCENE_SLOTS:B5_SCENE_SLOTS + B5_OBJ_ALIVE] = \
+            tiles[B5_SCENE_ALIVE:]
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        return int(math.ceil(bounds[-1] / CAP_HEADROOM)), \
+            bounds.astype(np.int32)
+    valid = B5_OBJ_ALIVE // B5_KNN_K * B5_KNN_K
+    ids = np.concatenate([rng.integers(0, B5_OBJ_ALIVE, size=valid),
+                          np.zeros(B5_OBJ_SLOTS - valid, np.int64)])
+    ids.sort()
+    bounds = np.searchsorted(ids, np.arange(B5_OBJ_SLOTS + 1))
+    return B5_OBJ_SLOTS, bounds.astype(np.int32)
+
+
+# B5's records at the train cells' patterns: (key, kind, rows_used, D)
+B5_TRAIN_CASES = (
+    ("segment_sum_composite_0.66M", "composite", 660_000, 16),
+    ("segment_sum_composite_1.48M", "composite", 1_480_000, 16),
+    ("segment_sum_knn_89", "knn", 0, 89),
+    ("segment_sum_knn_137", "knn", 0, 137),
+)
+
+
+def segment_sum_cases(dev, seed) -> dict:
     """B5's synthetic cases, for D in 1, 3, 16, 33, 98: one segment of
     100,000 rows among 50,000 segments of 0-3 rows; every segment empty
     (bounds[0] = bounds[n] inside the rows); bounds[0] > 0 with bounds[n]
-    < R; rows N(0,1) from the seed."""
+    < R; rows N(0,1) from the seed. Then the train cells' patterns
+    (B5_TRAIN_CASES), each checked and timed: returns their records."""
     import torch
     rng = np.random.default_rng(seed + 3)
 
@@ -760,6 +812,17 @@ def segment_sum_cases(dev, seed) -> None:
         b = 1234 + np.concatenate([[0], np.cumsum(lens)])
         check_segment_sum(f"B5 D={D}, bounds[0] > 0 and bounds[n] < R",
                           rows(int(b[-1]) + 5000, D), tensor(b))
+    recs = {}
+    for key, kind, used, D in B5_TRAIN_CASES:
+        R, b = b5_train_pattern(rng, kind, used)
+        lens = np.diff(b)
+        owner = torch.as_tensor(np.repeat(np.arange(len(lens)), lens),
+                                device=dev)
+        recs[key] = segment_sum_record(
+            f"B5 D={D}, {key}", rows(R, D), tensor(b), owner,
+            f"train cells' {kind} pattern")
+        recs[key]["kernel"] = "segment_sum"
+    return recs
 
 
 def segment_sum_record(label, rows, bounds, owner, use):
@@ -1010,7 +1073,7 @@ def backward_kernel_phase(rec, cfg, params, state, env, rays, cam, batch,
         "KNN group gather backward: sorted group rows")
     rec["segment_sum_knn"]["kernel"] = "segment_sum"
     # its longest segment alone (the groups past the valid anchors all
-    # point at value 0): its tiles in parallel, then one span sum
+    # point at value 0): its blocks in parallel, then the carries' levels
     seg_len = kbounds[1:] - kbounds[:-1]
     i = int(torch.argmax(seg_len))
     one = kbounds[i:i + 2].contiguous()
@@ -4591,7 +4654,7 @@ def run(dev, seed: int, card: str = "no card") -> list:
                        seed)
     backward_kernel_phase(rec, cfg, params, train_state, env, rays,
                           train_cam, batch, capacity, seed)
-    segment_sum_cases(dev, seed)
+    rec.update(segment_sum_cases(dev, seed))
     # 11b. Adam (A1) on a step's gradients and at the train cells' shapes
     lg = step.loss_and_grads(params, env, train_state, train_cam, batch, rays)
     rec["adam"] = adam_phase(dev, seed, real=(TrainableState(params, env),
@@ -4630,7 +4693,8 @@ def run(dev, seed: int, card: str = "no card") -> list:
     profile_call("one training step", step,
                  start + (train_cam, batch, rays, ITERATION))
     kernels = []
-    # one entry per record: B5 has two, one for each set of rows it sums;
+    # one entry per record: B5 one for each set of rows it sums (the
+    # step's two, the train cells' four patterns);
     # B3 and B4 one per instance layout; E2 one per variant of the lab.
     # launches: the training path's, or those of the path the record names
     for key, r in rec.items():

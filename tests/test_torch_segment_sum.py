@@ -71,14 +71,12 @@ def test_segment_reduce_contiguous_matches_jax(rng):
     assert np.abs(want[5]).max() > 0
 
 
-def test_group_gather_backward_matches_jax(rng):
-    """The KNN group gather's backward (sort + segment_sum) against
-    jax.vjp of adgs_tpu.train.losses._group_gather, with a quarter of the
-    anchor groups padded to value 0, as the card's KNN groups are past the
-    valid anchors (value 0 then holds ~200 rows)."""
-    n_val, D, A, K = 300, 12, 96, 8
+def _check_group_gather(rng, n_val, A, padded_from):
+    """GroupGather's backward against jax.vjp of _group_gather, D = 12,
+    K = 8, the groups from padded_from on all on value 0."""
+    D, K = 12, 8
     idx = rng.integers(0, n_val, size=(A, K)).astype(np.int32)
-    idx[3 * A // 4:] = 0
+    idx[padded_from:] = 0
     values = rng.normal(size=(n_val, D)).astype(np.float32)
     d_g = _dyadic(rng, (A, K, D))
     _, vjp = jax.vjp(jlosses._group_gather, jnp.asarray(values),
@@ -92,10 +90,27 @@ def test_group_gather_backward_matches_jax(rng):
     assert np.abs(want[0]).max() > 0
 
 
+def test_group_gather_backward_matches_jax(rng):
+    """The KNN group gather's backward (sort + segment_sum) against
+    jax.vjp of adgs_tpu.train.losses._group_gather, with a quarter of the
+    anchor groups padded to value 0, as the card's KNN groups are past the
+    valid anchors (value 0 then holds ~200 rows)."""
+    _check_group_gather(rng, 300, 96, 3 * 96 // 4)
+
+
+def test_group_gather_backward_pile_matches_jax(rng):
+    """The same with every group past the first quarter on value 0, as in
+    the train cells (value 0 then holds over 5,000 rows of 6,672)."""
+    _check_group_gather(rng, 2000, 834, 834 // 4)
+
+
 def _case(rng, kind: str, D: int):
     """(rows [R, D], bounds [n+1]) of the chip's synthetic B5 cases, cut
     down: one segment of 5,000 rows among 2,000 of 0-3 rows; every
-    segment empty; bounds[0] > 0 with bounds[n] < R."""
+    segment empty; bounds[0] > 0 with bounds[n] < R; and the compositing
+    backward's pattern in the train cells: alive segments of 0-3 rows, a
+    run of 5,000 empty ones in the middle, more alive ones, then an empty
+    tail at bounds[n] < R."""
     if kind == "long":
         lens = rng.integers(0, 4, size=2000)
         lens[700] = 5000
@@ -104,6 +119,13 @@ def _case(rng, kind: str, D: int):
     elif kind == "empty":
         R = 64
         bounds = np.full(1001, 37)
+    elif kind == "pile":
+        lens = np.concatenate([rng.integers(0, 4, size=700),
+                               np.zeros(5000, np.int64),
+                               rng.integers(0, 4, size=300),
+                               np.zeros(800, np.int64)])
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        R = int(bounds[-1]) + 50
     else:
         lens = rng.integers(0, 6, size=500)
         bounds = 23 + np.concatenate([[0], np.cumsum(lens)])
@@ -111,7 +133,7 @@ def _case(rng, kind: str, D: int):
     return _dyadic(rng, (R, D)), bounds.astype(np.int32)
 
 
-@pytest.mark.parametrize("kind", ["long", "empty", "offset"])
+@pytest.mark.parametrize("kind", ["long", "empty", "offset", "pile"])
 @pytest.mark.parametrize("D", [1, 3, 16, 33, 98])
 def test_segment_sum_cases(rng, kind, D):
     """segment_sum on CPU tensors (its plain twin) against a float64 loop
