@@ -39,7 +39,13 @@ does nothing when none records). The program counts:
     rendered, its num_rendered, which the trainer reads for its overflow
     guard anyway (on a mesh, the sum over the step's cameras and slabs):
     the count that sizes the expansion, compositing and reduction
-    kernels. Counted on the host value, so it adds no read.
+    kernels. Counted on the host value, so it adds no read;
+  - "densify_cloned", "densify_split", "densify_pruned",
+    "densify_dropped": a densify's clones, split samples written, prunes
+    and copies dropped for want of a free slot, both blocks summed (in
+    "trainer.densify", from its report read in one copy);
+  - "capacity_grows": a growth of the instance capacity or of the
+    Gaussian blocks (in its span "trainer.grow").
 
 The store keeps the last `MAX_ROOTS` roots; `reset()` clears it, and
 `summary()` reduces it to per-root means. One store serves the process,

@@ -17,7 +17,9 @@ KNN refresh's anchors and the split's draws).
 The hot loop reads two values from the card each step, as the JAX
 trainer does: the loss and num_rendered (for the overflow guard; on a
 mesh it comes in one copy with the step's splat instances, the sum over
-its cameras' slabs).
+its cameras' slabs). A densify adds one read of its report (the profiling
+counters densify_cloned, _split, _pruned, _dropped) besides the capacity
+check's.
 
 Multi-device training (devices > 1 or batch_cameras > 1) runs one
 trainer per rank of a joined process group (parallel/mesh.py; cli.train
@@ -222,6 +224,8 @@ class Trainer:
         self._ray_cache: dict = {}
         self.active_sh_degree = 0
         self.iteration = 0
+        # the largest num_rendered of a step since the last densify
+        self._max_rendered = 0
         # frames loaded on first use; also holds the evaluation render
         # functions under ("eval", sh_degree)
         self._frame_cache: dict = {}
@@ -411,14 +415,17 @@ class Trainer:
         new_cap = -(-int(num_rendered / 0.92) // q) * q
         if new_cap <= self.capacity:
             return
-        self.capacity = new_cap
-        self._build_step()
-        for k in [k for k in self._frame_cache if k[0] == "eval"]:
-            del self._frame_cache[k]
+        with span("trainer.grow"):
+            count("capacity_grows")
+            self.capacity = new_cap
+            self._build_step()
+            for k in [k for k in self._frame_cache if k[0] == "eval"]:
+                del self._frame_cache[k]
         self._say(f"[capacity] instance capacity grew to {new_cap}")
 
-    def _maybe_grow_capacity(self):
-        """Double a Gaussian block that is more than 90% alive."""
+    def _maybe_grow_capacity(self) -> int:
+        """Double a Gaussian block that is more than 90% alive. Returns the
+        alive Gaussians of both blocks."""
         ns = int(self.state.num_scene)
         no = int(self.state.num_obj)
         count("host_syncs", 2)
@@ -427,12 +434,31 @@ class Trainer:
         grow_s = Ns if ns > 0.9 * Ns else 0
         grow_o = No if no > 0.9 * No else 0
         if grow_s or grow_o:
-            t, self.opt_state, self.state = densify_lib.grow_capacity(
-                TrainableState(self.params, self.env), self.opt_state,
-                self.state, Ns + grow_s, No + grow_o)
-            self.params, self.env = t.gaussians, t.env
+            with span("trainer.grow"):
+                count("capacity_grows")
+                t, self.opt_state, self.state = densify_lib.grow_capacity(
+                    TrainableState(self.params, self.env), self.opt_state,
+                    self.state, Ns + grow_s, No + grow_o)
+                self.params, self.env = t.gaussians, t.env
             self._say(f"[capacity] grew to scene={Ns + grow_s} "
                       f"obj={No + grow_o}")
+        return ns + no
+
+    @staticmethod
+    def _read_densify(report, alive_before: torch.Tensor) -> tuple:
+        """The densify's report and the alive Gaussians before it, read in
+        one copy; the report as the counters densify_cloned, densify_split
+        (split samples written), densify_pruned and densify_dropped
+        (copies with no free slot), each the sum over both blocks.
+        Returns (Gaussians added: clones and split samples written, alive
+        Gaussians before)."""
+        *values, before = torch.stack([*report, alive_before]).tolist()
+        count("host_syncs")
+        n = dict(zip(report._fields, values))
+        for what in ("cloned", "split", "pruned", "dropped"):
+            count(f"densify_{what}", n[f"scene_{what}"] + n[f"obj_{what}"])
+        return n["scene_cloned"] + n["obj_cloned"] + n["scene_split"] \
+            + n["obj_split"], before
 
     def _dump_failure_snapshot(self, it: int, fidx: int) -> str:
         """Repro capsule on a step failure: the full train state and the
@@ -527,6 +553,7 @@ class Trainer:
                     print(f"[debug] step {it} raised; repro state dumped to "
                           f"{path} (frame {fidx})", file=sys.stderr)
                     raise
+                self._max_rendered = max(self._max_rendered, num_rendered)
                 ema = 0.4 * loss + 0.6 * ema if it > 1 else loss
                 if it % log_every == 0 or it % 200 == 0:
                     with span("trainer.log"):
@@ -557,7 +584,9 @@ class Trainer:
                     if (it > opt.densify_from_iter
                             and it % opt.densification_interval == 0):
                         with span("trainer.densify"):
-                            t, self.opt_state, self.state, _ = \
+                            before = (self.state.num_scene
+                                      + self.state.num_obj)
+                            t, self.opt_state, self.state, report = \
                                 densify_lib.densify_and_prune(
                                     TrainableState(self.params, self.env),
                                     self.opt_state, self.state,
@@ -569,7 +598,19 @@ class Trainer:
                                     self.scene.scene_extent,
                                     opt.object_extent, opt.percent_dense)
                             self.params, self.env = t.gaussians, t.env
-                            self._maybe_grow_capacity()
+                            added, before = self._read_densify(report,
+                                                               before)
+                            alive = self._maybe_grow_capacity()
+                            if added:
+                                # the next steps render the added
+                                # Gaussians too: size for the largest
+                                # num_rendered since the last densify,
+                                # grown as the alive count grew, before a
+                                # step overflows
+                                self._maybe_grow_instance_capacity(
+                                    -(-self._max_rendered * alive
+                                      // max(before, 1)))
+                            self._max_rendered = 0
                             self.refresh_near_idx()
                             self.check_replicas(f"densify at {it}")
                     elif (self.use_near_idx

@@ -15,7 +15,10 @@ on tests/test_torch_trainer.py's 64x48 synthetic KITTI scene:
   - the step's outputs and its marks' names are bitwise and letter for
     letter the same with tracing on and off;
   - summary()'s arithmetic on a hand-built store; --profile writes it to
-    metrics.jsonl."""
+    metrics.jsonl;
+  - a densify's span counts its report (densify_cloned, _split, _pruned,
+    _dropped) and one host sync for reading it; a block's growth is a
+    "trainer.grow" span counting "capacity_grows"."""
 
 import contextlib
 import copy
@@ -436,3 +439,56 @@ def test_profile_window_writes_the_summary(tmp_path, monkeypatch):
     assert rec["trainer.iteration/trainer.frames/h2d_bytes"] == \
         3 * W * H * 4 + (1 + 9 + 9 + 3) * 4 + 1
     assert rec["trainer.iteration/trainer.iteration/ms"] > 0
+
+
+
+def test_densify_counters_and_growth(tmp_path, monkeypatch):
+    """A densify at threshold 0 (every alive Gaussian copied) fills the
+    scene block: its span counts the report's clones, split samples,
+    prunes and dropped copies, each the sum over both blocks, and one
+    host sync for the report's read besides the capacity check's two and
+    the densify's own copies; the block's growth is a "trainer.grow" span
+    inside it that counts "capacity_grows"."""
+    from adgs_tpu_torch.train import densify as densify_lib
+    root = str(tmp_path / "scene")
+    make_kitti_scene(root, width=W, height=H)
+    opt = OptimizationConfig(**OPT, densify_scene_grad_threshold=0.0,
+                             densify_obj_grad_threshold=0.0,
+                             percent_dense=0.1)
+    tr = Trainer(read_scene(root), opt, str(tmp_path / "out"),
+                 order_args=ORDER, env_resolution=32, capacity=4096,
+                 capacity_quantum=256, seed=1, device="cpu")
+    reports, copies = [], []
+    real = densify_lib.densify_and_prune
+
+    def spy(*args):
+        out = real(*args)
+        reports.append({k: int(v) for k, v in out[3]._asdict().items()})
+        return out
+
+    real_copied = densify_lib.copied_in
+
+    def copied(*tensors):
+        copies.append(len(tensors))
+        real_copied(*tensors)
+
+    monkeypatch.setattr(densify_lib, "densify_and_prune", spy)
+    monkeypatch.setattr(densify_lib, "copied_in", copied)
+    capacity = tr.params.capacity
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr.train(iterations=4, save_iterations=[9], test_iterations=[9])
+    tr.close()
+    (rep,) = reports
+    assert rep["scene_cloned"] > 0 and rep["scene_dropped"] > 0
+    roots = {r.number: r for r in profiling.roots()
+             if r.name == "trainer.iteration"}
+    (dens,) = [c for c in roots[3].children if c.name == "trainer.densify"]
+    for what in ("cloned", "split", "pruned", "dropped"):
+        assert dens.counts[f"densify_{what}"] == \
+            rep[f"scene_{what}"] + rep[f"obj_{what}"]
+    assert dens.counts["host_syncs"] == 1 + 2 + sum(copies)
+    (grow,) = [c for c in dens.children if c.name == "trainer.grow"]
+    assert grow.counts == {"capacity_grows": 1}
+    assert tr.params.capacity > capacity
+    assert not any(s.name == "trainer.grow" for r in roots.values()
+                   for s in r.walk() if s is not grow)

@@ -12,6 +12,8 @@ profiling on the CPU:
     run, and cli.render's PSNR of the checkpoint equals the trainer's;
   - the overflow guard (as tests/test_data_cli.py::TestCapacityAutotune)
     and the failure snapshot (::TestFailureSnapshot);
+  - a densify that adds Gaussians grows the instance capacity before the
+    step after it can overflow (a difference from the JAX trainer);
   - multi-device arguments refused without a process group,
     profiling.trace with the program's spans in its trace."""
 
@@ -103,7 +105,10 @@ def _instrument(tr, densify_mod, monkeypatch, ones_like, events):
             state = dataclasses.replace(
                 state, scene_alive=ones_like(state.scene_alive),
                 obj_alive=ones_like(state.obj_alive))
-        return trainables, opt_state, state, None
+        # a report of no clone, split, prune or drop
+        zero = ones_like(state.scene_alive[:0]).sum()
+        return (trainables, opt_state, state,
+                densify_mod.DensifyReport(*[zero] * 8))
 
     def reset(trainables, opt_state):
         events.append(("reset", tr.iteration))
@@ -339,3 +344,58 @@ def test_profiling_trace_and_timer(tmp_path):
     assert s["roots"] == 1
     assert s["spans"]["serve.frame"]["counts"] == {"host_syncs": 2}
     profiling.reset()
+
+
+def test_growing_densify_grows_instance_capacity_ahead(tmp_path,
+                                                       monkeypatch):
+    """A densify that adds Gaussians sizes the instance capacity for the
+    largest num_rendered since the last densify, grown as the alive count
+    grew, before the next step: no step after it overflows (the JAX
+    trainer grows on an overflow or at the next interval). A densify that
+    adds nothing leaves the capacity alone. Step, densify and refresh
+    stubbed: num_rendered 3400 before the densify at 4 (under 0.97 of
+    4096), which adds a third of the alive Gaussians."""
+    root = make_kitti_scene(str(tmp_path / "scene"), width=W, height=H)
+    opt = OptimizationConfig(densification_interval=4, densify_from_iter=0,
+                             lambda_flow=0.0)
+    tr = Trainer(read_scene(root), opt, str(tmp_path / "out"),
+                 order_args=ORDER, env_resolution=32, capacity=4096,
+                 capacity_quantum=256, device="cpu")
+    alive0 = int(tr.state.num_scene) + int(tr.state.num_obj)
+    ran, builds, densified = [], [], []
+
+    def step(params, env, opt_state, state, cam, batch, rays, it,
+             active_sh_degree=3):
+        alive = int(state.num_scene) + int(state.num_obj)
+        nr = 3400 * alive // alive0 - 5 * (it % 4)
+        ran.append((int(it), nr, tr.capacity))
+        return (params, env, opt_state, state,
+                {"total_loss": torch.tensor(1.0),
+                 "num_rendered": torch.tensor(nr)})
+
+    def build():
+        builds.append((tr.iteration, tr.capacity))
+        tr._step_fn = step
+
+    def densify(trainables, opt_state, state, generator, *args):
+        added = alive0 // 3 if not densified else 0
+        densified.append(added)
+        dead = torch.nonzero(~state.scene_alive)[:added, 0]
+        alive = state.scene_alive.clone()
+        alive[dead] = True
+        zero = torch.zeros((), dtype=torch.int64)
+        report = tdensify.DensifyReport(
+            torch.tensor(added), *[zero] * 7)
+        return (trainables, opt_state,
+                dataclasses.replace(state, scene_alive=alive), report)
+
+    tr._build_step = build
+    monkeypatch.setattr(tr, "refresh_near_idx", lambda: None)
+    monkeypatch.setattr(tdensify, "densify_and_prune", densify)
+    tr.train(iterations=10, save_iterations=[99], test_iterations=[99])
+    tr.close()
+    assert densified == [alive0 // 3, 0]
+    assert builds == [(0, 4096), (4, 8192)]
+    assert [it for it, _, _ in ran] == list(range(1, 11))
+    assert all(nr <= cap for _, nr, cap in ran)
+    assert max(nr for it, nr, _ in ran if it > 4) > 4096
