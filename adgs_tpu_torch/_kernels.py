@@ -55,6 +55,8 @@ SOURCES = {
     "adam": "adam.cu",
     "preprocess": "preprocess.cu",
     "preprocess_bwd": "preprocess.cu",
+    "deform": "deform.cu",
+    "deform_bwd": "deform.cu",
 }
 
 launches = {name: 0 for name in SOURCES}

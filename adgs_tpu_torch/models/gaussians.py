@@ -4,20 +4,31 @@
 GaussianParams holds the trainable leaves, GaussianState the bookkeeping.
 Each block is padded to a capacity with an alive mask; dead slots hold
 zeros, identity quaternions, a -15 opacity logit and a -10 log-scale.
+
+`deform` evaluates the temporal deformation: kernel T1 (csrc/deform.cu)
+where `_kernels.use` says kernel, inside an autograd Function whose
+backward is kernel T2; elsewhere `deformed_package_torch`, the plain
+version, and `deformed_xyz` at the flow time. `deform_fwd_torch` and
+`deform_bwd_torch` are T1's and T2's plain twins in the kernels' calling
+convention.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import functools
+import types
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from .._device import resolve_device
 from ..core import quaternion as quat
 from ..core import splines
 from ..core.sh import rgb_to_sh
+from ..profiling import copied_in
 
 
 class GaussianConfig(NamedTuple):
@@ -284,9 +295,9 @@ def obj_mask(params: GaussianParams) -> torch.Tensor:
         torch.ones(params.obj_capacity, dtype=torch.bool, device=dev)])
 
 
-def deformed_package(params: GaussianParams, state: GaussianState,
-                     config: GaussianConfig, t: torch.Tensor) -> dict:
-    """Time-evaluated render inputs."""
+def deformed_package_torch(params: GaussianParams, state: GaussianState,
+                           config: GaussianConfig, t: torch.Tensor) -> dict:
+    """Time-evaluated render inputs: the plain version of `deform`."""
     if config.use_time_mask:
         opacity = time_masked_opacity(params, state, t)
     else:
@@ -297,3 +308,257 @@ def deformed_package(params: GaussianParams, state: GaussianState,
         "shs": deformed_shs(params, config, t),
         "opacity": opacity,
     }
+
+
+# the leaves the deformation reads, in csrc/deform.cu's order
+DEFORM_LEAVES = ("scene_xyz", "scene_shs_dc", "scene_shs_rest",
+                 "scene_rotation", "scene_opacity", "scene_shs_deform",
+                 "obj_xyz", "obj_shs_dc", "obj_shs_rest", "obj_rotation",
+                 "obj_opacity", "obj_shs_deform", "xyz_deform",
+                 "rotation_deform", "gs_time_sigma", "background_deform")
+# T1's and T2's largest B-spline and quaternion order, and largest number
+# of polynomial or Fourier (2 x order) terms of one basis
+MAX_ORDER = 5
+MAX_TERMS = 128
+_BLOCK = 256        # csrc/deform.cu kThreads
+_MAT = (MAX_ORDER + 1) ** 2
+
+
+def deform(params: GaussianParams, state: GaussianState,
+           config: GaussianConfig, t: torch.Tensor,
+           flow_time: Optional[torch.Tensor] = None
+           ) -> tuple[dict, Optional[torch.Tensor]]:
+    """The render inputs at time t (`deformed_package_torch`'s dict: xyz,
+    rotation, shs, opacity, each a fresh contiguous tensor) and, with
+    flow_time, the xyz at the flow time (else None). One launch of T1 for
+    both, and T2 for the gradient, or the plain version, as
+    `_kernels.use` says for params.scene_xyz."""
+    if not _kernels.use(params.scene_xyz):
+        pkg = deformed_package_torch(params, state, config, t)
+        flow = (None if flow_time is None
+                else deformed_xyz(params, config, flow_time))
+        return pkg, flow
+    dev = params.scene_xyz.device
+    leaves = tuple(getattr(params, name).contiguous()
+                   for name in DEFORM_LEAVES)
+    gs_time = state.gs_time.contiguous()
+    t = _time(t, dev)
+    flow_time = None if flow_time is None else _time(flow_time, dev)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in leaves):
+        out = _Deform.apply(config, gs_time, t, flow_time, *leaves)
+    else:
+        out = _deform_fwd(config, gs_time, t, flow_time, leaves)
+    xyz, rotation, shs, opacity = out[:4]
+    return ({"xyz": xyz, "rotation": rotation, "shs": shs,
+             "opacity": opacity},
+            out[4] if flow_time is not None else None)
+
+
+def _time(t, dev) -> torch.Tensor:
+    """t as a 0-d float32 tensor on dev (the kernels read it there)."""
+    if (isinstance(t, torch.Tensor) and t.device == dev
+            and t.dtype == torch.float32 and t.numel() == 1):
+        return t.reshape(())
+    out = torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(())
+    if not (isinstance(t, torch.Tensor) and t.device == dev):
+        copied_in(out)
+    return out
+
+
+def _reached(config: GaussianConfig) -> tuple[bool, ...]:
+    """Per DEFORM_LEAVES: whether the plain version's autograd graph gives
+    the leaf a gradient (the base object rotation not under a quaternion
+    spline, the time sigmas only under the time mask, a trajectory only
+    with columns)."""
+    shs = config.shs.param_count > 0
+    return (True, True, True, True, True, shs,
+            True, True, True, config.rotation.quat_ctrl == 0, True, shs,
+            config.xyz.param_count > 0, config.rotation.param_count > 0,
+            config.use_time_mask, config.background.param_count > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_args(config: GaussianConfig):
+    """The kernels' per-basis integers and de Boor-Cox matrices (xyz,
+    rotation, shs, background); raises above the orders and term counts
+    they are built for."""
+    ints, mats = [], np.zeros(8 * _MAT, np.float32)
+    for b, cfg in enumerate((config.xyz, config.rotation, config.shs,
+                             config.background)):
+        for name, v, top in (("B-spline order", cfg.bspline_order,
+                              MAX_ORDER),
+                             ("quaternion order", cfg.quat_order, MAX_ORDER),
+                             ("polynomial order", cfg.poly_order, MAX_TERMS),
+                             ("Fourier terms", 2 * cfg.fft_order,
+                              MAX_TERMS)):
+            if v > top:
+                raise ValueError(f"deform: a {name} of {v} is above the "
+                                 f"kernels' {top}")
+        ints += [cfg.bspline_ctrl, cfg.bspline_order, cfg.poly_order,
+                 cfg.fft_order, cfg.quat_ctrl, cfg.quat_order]
+        for j, order in enumerate((cfg.bspline_order, cfg.quat_order)):
+            m = splines.deboor_cox_matrix(order).reshape(-1)
+            mats[(2 * b + j) * _MAT:(2 * b + j) * _MAT + m.size] = m
+    return ints, mats
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _blocks(dev: torch.device, n: int) -> int:
+    """T1's and T2's grid: each block builds its time tables once, then
+    strides over tiles of _BLOCK slots."""
+    return max(1, min(-(-n // _BLOCK), 8 * _sm_count(dev.index or 0)))
+
+
+def _check_leaves(leaves, gs_time, t, flow_time):
+    """Validate the operands of T1 and T2; returns (ns, no, K)."""
+    ns, no = leaves[0].shape[0], leaves[6].shape[0]
+    k = leaves[2].shape[1] + 1
+    shapes = {"scene_xyz": (ns, 3), "scene_shs_dc": (ns, 1, 3),
+              "scene_shs_rest": (ns, k - 1, 3), "scene_rotation": (ns, 4),
+              "scene_opacity": (ns, 1), "obj_xyz": (no, 3),
+              "obj_shs_dc": (no, 1, 3), "obj_shs_rest": (no, k - 1, 3),
+              "obj_rotation": (no, 4), "obj_opacity": (no, 1),
+              "gs_time_sigma": (no, 2)}
+    for name, x in zip(DEFORM_LEAVES, leaves):
+        _kernels.require(x, name, torch.float32, shapes.get(name))
+    for name, x, lead in (("scene_shs_deform", leaves[5], (ns, 3)),
+                          ("obj_shs_deform", leaves[11], (no, 3)),
+                          ("xyz_deform", leaves[12], (no, 3)),
+                          ("rotation_deform", leaves[13], (no, 4)),
+                          ("background_deform", leaves[15], (1, 3))):
+        if x.dim() != 3 or tuple(x.shape[:2]) != lead:
+            raise ValueError(f"{name}: expected shape {lead} + (C,), got "
+                             f"{tuple(x.shape)}")
+    _kernels.require(gs_time, "gs_time", torch.float32, (no,))
+    _kernels.require(t, "t", torch.float32, ())
+    if flow_time is not None:
+        _kernels.require(flow_time, "flow_time", torch.float32, ())
+    return ns, no, k
+
+
+def _ints(config, ns, no, k, blocks):
+    basis, mats = _basis_args(config)
+    return (np.array([ns, no, k, int(config.use_time_mask), blocks] + basis,
+                     np.int64), mats)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _deform_fwd(config, gs_time, t, flow_time, leaves):
+    """One launch of T1: (xyz, rotation, shs, opacity, the xyz at
+    flow_time or None)."""
+    ns, no, k = _check_leaves(leaves, gs_time, t, flow_time)
+    for cfg, x in ((config.xyz, leaves[12]), (config.rotation, leaves[13]),
+                   (config.shs, leaves[5]), (config.background,
+                                             leaves[15])):
+        if x.shape[2] != cfg.param_count:
+            raise ValueError(f"deform: {cfg} has {cfg.param_count} "
+                             f"columns, the rows {x.shape[2]}")
+    n = ns + no
+    f32 = dict(dtype=torch.float32, device=t.device)
+    out = (torch.empty((n, 3), **f32), torch.empty((n, 4), **f32),
+           torch.empty((n, k, 3), **f32), torch.empty((n, 1), **f32),
+           None if flow_time is None else torch.empty((n, 3), **f32))
+    blocks = _blocks(t.device, n)
+    ints, mats = _ints(config, ns, no, k, blocks)
+    ptrs = np.array([x.data_ptr() for x in leaves]
+                    + [_ptr(x) for x in (gs_time, t, flow_time) + out],
+                    np.int64)
+    err = _kernels.entry("deform", "adgs_deform_fwd", "pppp")(
+        ptrs.ctypes.data, ints.ctypes.data, mats.ctypes.data,
+        _kernels.stream(t))
+    _kernels.check(err, "deform")
+    _kernels.launches["deform"] += 1
+    return out
+
+
+def _deform_bwd(config, gs_time, t, flow_time, leaves, grads, needs):
+    """One call of T2 (its per-slot kernel and, for the background
+    trajectory, its one-block sum): the gradient of each leaf (None where
+    not `needs` or where the plain graph gives none) from grads, the
+    gradients of (xyz, flow xyz or None, rotation, shs, opacity)."""
+    ns, no, k = _check_leaves(leaves, gs_time, t, flow_time)
+    n = ns + no
+    grads = [None if g is None else g.contiguous() for g in grads]
+    for g, name, shape in zip(grads, ("xyz", "flow xyz", "rotation", "shs",
+                                      "opacity"),
+                              ((n, 3), (n, 3), (n, 4), (n, k, 3), (n, 1))):
+        if g is not None or name != "flow xyz":
+            _kernels.require(g, f"dL/d{name}", torch.float32, shape)
+    reached = _reached(config)
+    out = [torch.empty_like(x) if need and go else None
+           for x, need, go in zip(leaves, needs, reached)]
+    blocks = _blocks(t.device, n)
+    partials = (None if out[15] is None else torch.empty(
+        (blocks, 6), dtype=torch.float32, device=t.device))
+    ints, mats = _ints(config, ns, no, k, blocks)
+    ptrs = np.array([x.data_ptr() for x in leaves]
+                    + [_ptr(x) for x in (gs_time, t, flow_time)]
+                    + [0] * 5 + [_ptr(g) for g in grads]
+                    + [_ptr(x) for x in out] + [_ptr(partials)], np.int64)
+    err = _kernels.entry("deform_bwd", "adgs_deform_bwd", "pppp")(
+        ptrs.ctypes.data, ints.ctypes.data, mats.ctypes.data,
+        _kernels.stream(t))
+    _kernels.check(err, "deform_bwd")
+    _kernels.launches["deform_bwd"] += 1
+    return out
+
+
+class _Deform(torch.autograd.Function):
+    """T1 forward, T2 backward. T2 recomputes the forward from the inputs,
+    so only the inputs and the times are saved."""
+
+    @staticmethod
+    def forward(ctx, config, gs_time, t, flow_time, *leaves):
+        out = _deform_fwd(config, gs_time, t, flow_time, leaves)
+        ctx.config = config
+        ctx.save_for_backward(gs_time, t, flow_time, *leaves)
+        return out if flow_time is not None else out[:4]
+
+    @staticmethod
+    def backward(ctx, g_xyz, g_rot, g_shs, g_op, g_flow=None):
+        gs_time, t, flow_time, *leaves = ctx.saved_tensors
+        out = _deform_bwd(ctx.config, gs_time, t, flow_time, leaves,
+                          (g_xyz, g_flow, g_rot, g_shs, g_op),
+                          ctx.needs_input_grad[4:])
+        return (None, None, None, None, *out)
+
+
+def _plain_inputs(leaves, gs_time):
+    """GaussianParams and a stand-in state from T1's operands (the
+    scalings, which the deformation does not read, empty)."""
+    fields = dict(zip(DEFORM_LEAVES, leaves))
+    empty = leaves[0].new_zeros((0, 3))
+    params = GaussianParams(scene_scaling=empty, obj_scaling=empty, **fields)
+    return params, types.SimpleNamespace(gs_time=gs_time)
+
+
+def deform_fwd_torch(config, gs_time, t, flow_time, leaves):
+    """Plain twin of T1 in `_deform_fwd`'s convention, on any device."""
+    params, state = _plain_inputs(leaves, gs_time)
+    pkg = deformed_package_torch(params, state, config, t)
+    flow = (None if flow_time is None
+            else deformed_xyz(params, config, flow_time))
+    return pkg["xyz"], pkg["rotation"], pkg["shs"], pkg["opacity"], flow
+
+
+def deform_bwd_torch(config, gs_time, t, flow_time, leaves, grads, needs):
+    """Plain twin of T2 in `_deform_bwd`'s convention, on any device:
+    autograd through the plain version, None where it gives no gradient
+    or none is needed."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(True) for x in leaves]
+        out = deform_fwd_torch(config, gs_time, t, flow_time, xs)
+        pairs = [(o, g) for o, g in zip(
+            out, (grads[0], grads[2], grads[3], grads[4], grads[1]))
+            if o is not None]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  xs, [g for _, g in pairs],
+                                  allow_unused=True)
+    return [g if need else None for g, need in zip(got, needs)]

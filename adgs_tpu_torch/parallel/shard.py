@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 from ..core.camera import Camera
 from ..models.gaussians import (GaussianConfig, activated_scaling,
-                                deformed_package, deformed_xyz, obj_mask)
+                                deform, obj_mask)
 from ..ops import flow as flow_ops
 from ..ops import image as image_ops
 from ..raster import binning as binning_lib
@@ -263,9 +263,7 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
         p_loc = _slice_gaussian_axis(params, d, D, ns, no)
         s_loc = _slice_gaussian_axis(state, d, D, ns, no)
         so_loc = _slice_gaussian_axis(screen_offset, d, D, ns, no)
-        pkg_loc = deformed_package(p_loc, s_loc, config, time)
-        flow_loc = (deformed_xyz(p_loc, config, flow_time)
-                    if has_flow else None)
+        pkg_loc, flow_loc = deform(p_loc, s_loc, config, time, flow_time)
         sem_loc = obj_mask(p_loc).to(torch.float32)[:, None] if has_sem \
             else None
         prep_loc = prep_lib.preprocess(
@@ -327,9 +325,7 @@ def _device_render(params, state, screen_offset, *, config, settings, time,
             order(cc.all_gather(payload, group)), has_flow, has_sem,
             radii_full)
     else:
-        pkg = deformed_package(params, state, config, time)
-        flow_points = (deformed_xyz(params, config, flow_time)
-                       if has_flow else None)
+        pkg, flow_points = deform(params, state, config, time, flow_time)
         semantic = obj_mask(params).to(torch.float32)[:, None] if has_sem \
             else None
         prep = prep_lib.preprocess(

@@ -20,8 +20,7 @@ from ._stages import mark
 from .core.camera import Camera
 from .models.env_map import EnvironmentMap
 from .models.gaussians import (GaussianConfig, GaussianParams, GaussianState,
-                               activated_scaling, deformed_package,
-                               deformed_xyz, obj_mask)
+                               activated_scaling, deform, obj_mask)
 from .profiling import span
 from .raster import binning as binning_lib
 from .raster import preprocess as prep_lib
@@ -52,7 +51,7 @@ def compute_binning(camera: Camera, params: GaussianParams,
                  else config.sh_degree)
     settings = settings_for_camera(camera, sh_degree, inv_depth,
                                    scaling_modifier)
-    pkg = deformed_package(params, state, config, camera.time)
+    pkg, _ = deform(params, state, config, camera.time)
     prep = prep_lib.preprocess(pkg["xyz"], activated_scaling(params),
                                pkg["rotation"], pkg["opacity"], None,
                                settings, active_mask=state.alive)
@@ -113,10 +112,8 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
     mark(stage_marks, "start")
 
     with span("render.deform"):
-        flow_points = None
-        if flow_time is not None:
-            flow_points = deformed_xyz(params, config, flow_time)
-        pkg = deformed_package(params, state, config, camera.time)
+        pkg, flow_points = deform(params, state, config, camera.time,
+                                  flow_time)
         semantic = None
         if render_objmask:
             semantic = obj_mask(params).to(torch.float32)[:, None]

@@ -249,12 +249,19 @@ KERNELS = {
                            source="adgs_tpu_torch/csrc/preprocess.cu",
                            replaces="none (XLA fuses the VJP of "
                                     "adgs_tpu/raster/preprocess.py:48)"),
+    "deform": dict(id="T1", source="adgs_tpu_torch/csrc/deform.cu",
+                   replaces="none (XLA fuses "
+                            "adgs_tpu/models/gaussians.py:326)"),
+    "deform_bwd": dict(id="T2", source="adgs_tpu_torch/csrc/deform.cu",
+                       replaces="none (XLA fuses the VJP of "
+                                "adgs_tpu/models/gaussians.py:326)"),
 }
-SERVING_KERNELS = ("preprocess", "compact_live", "expand", "composite_fwd",
-                   "grid_sample")
-TRAINING_KERNELS = ("preprocess", "preprocess_bwd", "compact_live", "expand",
-                    "composite_fwd", "composite_bwd", "segment_sum",
-                    "grid_sample", "grid_sample_bwd", "adam")
+SERVING_KERNELS = ("deform", "preprocess", "compact_live", "expand",
+                   "composite_fwd", "grid_sample")
+TRAINING_KERNELS = ("deform", "deform_bwd", "preprocess", "preprocess_bwd",
+                    "compact_live", "expand", "composite_fwd",
+                    "composite_bwd", "segment_sum", "grid_sample",
+                    "grid_sample_bwd", "adam")
 LAB_KERNELS = ("lab_cm", "lab_rm")
 # the cli.render phase's scene: the two poses, 5 timestamps each (frame 4
 # of each camera is nvs-75's test frame)
@@ -408,13 +415,12 @@ def size_capacity(cfg, params, state, cams) -> tuple[int, int]:
 def frame_inputs(cfg, params, state, cam, capacity: int):
     """Settings, full Preprocessed (with SH colour) and Binning of a frame."""
     from adgs_tpu_torch import _kernels
-    from adgs_tpu_torch.models.gaussians import (activated_scaling,
-                                                 deformed_package)
+    from adgs_tpu_torch.models.gaussians import activated_scaling, deform
     from adgs_tpu_torch.raster.binning import bin_gaussians
     from adgs_tpu_torch.raster.preprocess import preprocess
     from adgs_tpu_torch.render import settings_for_camera
     st = settings_for_camera(cam, cfg.sh_degree)
-    pkg = deformed_package(params, state, cfg, cam.time)
+    pkg, _ = deform(params, state, cfg, cam.time)
     prep = preprocess(pkg["xyz"], activated_scaling(params), pkg["rotation"],
                       pkg["opacity"], pkg["shs"], st, active_mask=state.alive)
     with _kernels.plain():
@@ -2767,6 +2773,198 @@ def preprocess_phase(dev, seed: int) -> dict:
     return recs
 
 
+# ---------------------------------------------------------------------------
+# 11d. the temporal deformation: T1 and T2 (csrc/deform.cu) against the
+# plain version and autograd through it
+# ---------------------------------------------------------------------------
+DEFORM_CONFIGS = {   # order arguments, frames (port_bench/configs)
+    "kitti-75": (KITTI_75, 52),
+    "waymo": (dict(KITTI_75, background=[0, 0, 0, 0, 0, 0]), 100)}
+DEFORM_TIMES = (0.4137, 0.4329)    # the camera's time, the flow time
+# f32 operations a slot, counted low: T1's scene slot (colour trajectory,
+# normalization, sigmoid) and object slot (xyz at two times, the order-5
+# quaternion chain, the time mask); T2's are about twice those
+DEFORM_SCENE_OPS, DEFORM_OBJ_OPS = 100, 1000
+# T1's outputs must be bitwise the plain version's; T2's leaves within this
+# of autograd through it (relative, the worst leaf by norm)
+DEFORM_BWD_GAP = 1e-5
+
+
+def deform_inputs(dev, seed: int, cfg_name: str):
+    """A model at the train cells' capacity (ADAM_CAPACITY) under one
+    configuration, ADAM_DEAD of each block dead (zero trajectories, identity
+    rotations, as the capacity padding), the live slots' trajectories
+    N(0, 0.3) so that every term moves; and N(0, 1) gradients of the five
+    outputs. Returns (config, gs_time, t, flow_time, leaves, grads)."""
+    import torch
+    from adgs_tpu_torch.models import gaussians as gm
+    orders, frames = DEFORM_CONFIGS[cfg_name]
+    cfg = gm.GaussianConfig.from_order_args(orders, frame_num=frames)
+    ns, no = ADAM_CAPACITY
+    k = (cfg.sh_degree + 1) ** 2
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    shapes = {"scene_xyz": (ns, 3), "scene_shs_dc": (ns, 1, 3),
+              "scene_shs_rest": (ns, k - 1, 3), "scene_rotation": (ns, 4),
+              "scene_opacity": (ns, 1),
+              "scene_shs_deform": (ns, 3, cfg.shs.param_count),
+              "obj_xyz": (no, 3), "obj_shs_dc": (no, 1, 3),
+              "obj_shs_rest": (no, k - 1, 3), "obj_rotation": (no, 4),
+              "obj_opacity": (no, 1),
+              "obj_shs_deform": (no, 3, cfg.shs.param_count),
+              "xyz_deform": (no, 3, cfg.xyz.param_count),
+              "rotation_deform": (no, 4, cfg.rotation.param_count),
+              "gs_time_sigma": (no, 2),
+              "background_deform": (1, 3, cfg.background.param_count)}
+    leaves = {name: rnd(*shape, scale=0.3 if len(shape) == 3 else 1.0)
+              for name, shape in shapes.items()}
+    leaves["gs_time_sigma"] = leaves["gs_time_sigma"] * 0.5 - 3.0
+    for block, n in (("scene", ns), ("obj", no)):
+        dead = torch.rand(n, generator=gen, device=dev) < ADAM_DEAD
+        names = [x for x in shapes if x.startswith(block)]
+        if block == "obj":
+            names += ["xyz_deform", "rotation_deform", "gs_time_sigma"]
+        for name in names:
+            leaves[name][dead] = 0.0
+        leaves[f"{block}_rotation"][dead, 0] = 1.0
+        leaves[f"{block}_opacity"][dead] = -15.0
+    gs_time = torch.rand(no, generator=gen, device=dev)
+    t, ft = (torch.tensor(x, device=dev) for x in DEFORM_TIMES)
+    n = ns + no
+    grads = [rnd(n, 3), rnd(n, 3), rnd(n, 4), rnd(n, k, 3), rnd(n, 1)]
+    return (cfg, gs_time, t, ft,
+            tuple(leaves[x] for x in gm.DEFORM_LEAVES), grads)
+
+
+def deform_bytes(cfg, ns: int, no: int, k: int) -> tuple[int, int]:
+    """T1's and T2's bytes at DEFORM_TIMES, each input byte read once and
+    each output byte written once: the columns a slot's trajectories read
+    at either time, the rows the outputs and the leaves' gradients fill."""
+    def cols(b, times):
+        used = set()
+        for t in times:
+            if b.bspline_ctrl:
+                iv = b.bspline_ctrl - b.bspline_order
+                s = min(max(math.floor(t * iv), 0), iv - 1)
+                used.update(range(s, s + b.bspline_order + 1))
+            used.update(range(b.bspline_ctrl,
+                              b.bspline_ctrl + b.poly_order + 2 * b.fft_order))
+            if b.quat_ctrl and t == times[0]:
+                iv = b.quat_ctrl - b.quat_order
+                s = min(max(math.floor(t * iv), 0), iv - 1)
+                q0 = b.param_count - b.quat_ctrl
+                used.update(range(q0 + s, q0 + s + b.quat_order + 1))
+        return len(used)
+
+    two, one = DEFORM_TIMES, DEFORM_TIMES[:1]
+    shs_in = 3 * cols(cfg.shs, one)
+    scene_in = 3 + 3 * k + 4 + 1 + shs_in
+    obj_in = scene_in + 3 * cols(cfg.xyz, two) + 4 * cols(cfg.rotation, one) \
+        + 2 + 1
+    out = 3 + 3 + 4 + 3 * k + 1
+    t1 = 4 * (ns * (scene_in + out) + no * (obj_in + out))
+    grads_in = 3 + 3 + 4 + 3 * k + 1
+    scene_g = 3 + 4 + 3 * k + 1 + 3 * cfg.shs.param_count
+    obj_g = 3 + 3 * k + 1 + 3 * cfg.shs.param_count + 3 * cfg.xyz.param_count \
+        + 4 * cfg.rotation.param_count + 2
+    scene_read = 4 + 1
+    obj_read = 4 * cols(cfg.rotation, one) + 1 + 2 + 1
+    t2 = 4 * (ns * (grads_in + scene_read + scene_g)
+              + no * (grads_in + obj_read + obj_g))
+    return t1, t2
+
+
+def ulps(a, b) -> int:
+    """The largest distance in float32 units of the last place between two
+    tensors of the same shape (0 where both are equal, -0 and +0 too)."""
+    import torch
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def deform_phase(dev, seed: int) -> dict:
+    """T1 and T2 at the train cells' 2,007,040 slots under kitti-75's and
+    waymo's deformation: every T1 output (with the flow-time xyz) bitwise
+    the plain version's, every T2 leaf within DEFORM_BWD_GAP of autograd
+    through it (None exactly where that gives none), each bitwise on a
+    repeated launch. Records at kitti-75: card and device ms, the byte
+    bound, the plain version's ms (T2: autograd through it, its forward
+    included) and the largest absolute error over both configurations."""
+    import torch
+    from adgs_tpu_torch.models import gaussians as gm
+    recs = {}
+    t1_err = t2_err = 0.0
+    for name in DEFORM_CONFIGS:
+        cfg, gs_time, t, ft, leaves, grads = deform_inputs(dev, seed, name)
+        got = gm._deform_fwd(cfg, gs_time, t, ft, leaves)
+        want = gm.deform_fwd_torch(cfg, gs_time, t, ft, leaves)
+        again = gm._deform_fwd(cfg, gs_time, t, ft, leaves)
+        dist = {}
+        for out, a, b, c in zip(("xyz", "rotation", "shs", "opacity",
+                                 "flow xyz"), got, want, again):
+            check_bitwise(f"T1 {name} {out} on a repeated launch", a, c)
+            dist[out] = ulps(a, b)
+            t1_err = max(t1_err, float((a - b).abs().max()))
+        log(f"# T1 {name} vs the plain version, ulps by output: {dist}")
+        if any(dist.values()):
+            raise AssertionError(f"T1 {name}: {dist}")
+        needs = [True] * len(leaves)
+        bwd = gm._deform_bwd(cfg, gs_time, t, ft, leaves, grads, needs)
+        twin = gm.deform_bwd_torch(cfg, gs_time, t, ft, leaves, grads, needs)
+        again = gm._deform_bwd(cfg, gs_time, t, ft, leaves, grads, needs)
+        gaps = {}
+        for leaf, a, b, c in zip(gm.DEFORM_LEAVES, bwd, twin, again):
+            if (a is None) != (b is None):
+                raise AssertionError(f"T2 {name} {leaf}: a gradient where "
+                                     "autograd gives none, or none where "
+                                     "it gives one")
+            if a is None:
+                continue
+            check_bitwise(f"T2 {name} {leaf} on a repeated launch", a, c)
+            gaps[leaf] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            t2_err = max(t2_err, float((a - b).abs().max()))
+        log(f"# T2 {name} vs autograd through the plain version, by leaf: "
+            + json.dumps({k: f"{v:.2e}" for k, v in gaps.items()}))
+        if max(gaps.values()) > DEFORM_BWD_GAP:
+            raise AssertionError(f"T2 {name}: {gaps}")
+        if not recs:
+            ns, no = ADAM_CAPACITY
+            k = leaves[2].shape[1] + 1
+            t1_bytes, t2_bytes = deform_bytes(cfg, ns, no, k)
+            args = (cfg, gs_time, t, ft, leaves)
+            fwd_t = times(lambda: gm._deform_fwd(*args), 20)
+            bwd_t = times(lambda: gm._deform_bwd(*args, grads, needs), 20)
+            plain_ms = cuda_ms(lambda: gm.deform_fwd_torch(*args), 3)
+            twin_ms = cuda_ms(lambda: gm.deform_bwd_torch(*args, grads,
+                                                          needs), 3)
+            recs["deform"] = dict(
+                kernel="deform", plain_ms=plain_ms, bytes=t1_bytes,
+                flops=DEFORM_SCENE_OPS * ns + DEFORM_OBJ_OPS * no,
+                use=f"{name}: {ns} scene and {no} object slots, the flow "
+                    "xyz too", **fwd_t)
+            recs["deform_bwd"] = dict(
+                kernel="deform_bwd", plain_ms=twin_ms, bytes=t2_bytes,
+                flops=2 * (DEFORM_SCENE_OPS * ns + DEFORM_OBJ_OPS * no),
+                use=f"{name}: {ns} scene and {no} object slots, the flow "
+                    "xyz too", **bwd_t)
+            for key, r in recs.items():
+                log(f"# {KERNELS[key]['id']} {name}: card {r['ms']:.4f} ms, "
+                    f"device {fmt_ms(r['device_ms'])}, bound "
+                    f"{r['bytes'] / HBM_BYTES_S * 1e3:.4f} ({r['bytes']} B "
+                    f"at 3.35 TB/s), plain {r['plain_ms']:.4f}")
+        del leaves, grads, got, want, again, bwd, twin
+        torch.cuda.empty_cache()
+    recs["deform"]["max_abs_err"] = t1_err
+    recs["deform_bwd"]["max_abs_err"] = t2_err
+    return recs
+
+
 def adam_library(p, g, m, v):
     """torch._fused_adam_ over the same leaves (in place on copies, one
     learning rate, eps inside its own formula): a yardstick of what one
@@ -4554,9 +4752,11 @@ def run(dev, seed: int, card: str = "no card") -> list:
                                               reqs, capacity)
     log(f"# served {len(outs)} frames; launches {serve_launches}")
     check_launched("serving", serve_launches, SERVING_KERNELS)
-    if serve_launches["preprocess"] != len(reqs):
-        raise AssertionError(f"P1: {serve_launches['preprocess']} launches "
-                             f"in {len(reqs)} requests")
+    for name in ("preprocess", "deform"):
+        if serve_launches[name] != len(reqs):
+            raise AssertionError(f"{KERNELS[name]['id']}: "
+                                 f"{serve_launches[name]} launches in "
+                                 f"{len(reqs)} requests")
     for i, out in enumerate(outs):
         if int(out["num_rendered"]) > capacity:
             raise AssertionError(f"frame {i}: instance overflow "
@@ -4607,7 +4807,8 @@ def run(dev, seed: int, card: str = "no card") -> list:
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"# trained {len(logs)} steps; launches {launches}")
     check_launched("training", launches, TRAINING_KERNELS)
-    for name in ("adam", "preprocess", "preprocess_bwd"):
+    for name in ("adam", "preprocess", "preprocess_bwd", "deform",
+                 "deform_bwd"):
         if launches[name] != len(logs):
             raise AssertionError(f"{KERNELS[name]['id']}: {launches[name]} "
                                  f"launches in {len(logs)} training steps")
@@ -4662,6 +4863,8 @@ def run(dev, seed: int, card: str = "no card") -> list:
     del lg
     # 11c. P1 and P2 at the train cells' slot count
     rec.update(preprocess_phase(dev, seed))
+    # 11d. T1 and T2 at the train cells' slot count
+    rec.update(deform_phase(dev, seed))
 
     # 12. the lab (E1, E2)
     log("# lab: adgs_tpu_torch.exp.lab_rowmajor at its defaults")

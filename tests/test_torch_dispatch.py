@@ -26,6 +26,7 @@ import chip_smoke
 from adgs_tpu_torch import _kernels
 from adgs_tpu_torch.cli import common as tcommon
 from adgs_tpu_torch.data.readers import read_scene
+from adgs_tpu_torch.models import gaussians as gm
 from adgs_tpu_torch.ops import grid_sample as gs
 from adgs_tpu_torch.raster import binning
 from adgs_tpu_torch.raster import preprocess as prep
@@ -40,8 +41,8 @@ from tests.test_data_cli import make_kitti_scene
 ORDER = dict(xyz=[4, 2, 0, 2, 0, 0], rotation=[0, 0, 0, 0, 4, 2],
              shs=[0, 0, 0, 2, 0, 0], background=[0, 0, 0, 0, 0, 0])
 CARD = types.SimpleNamespace(is_cuda=True)   # what use() reads of a tensor
-BACKWARD_KERNELS = {"preprocess_bwd", "composite_bwd", "segment_sum",
-                    "grid_sample_bwd"}
+BACKWARD_KERNELS = {"deform_bwd", "preprocess_bwd", "composite_bwd",
+                    "segment_sum", "grid_sample_bwd"}
 
 
 @pytest.fixture(scope="module")
@@ -76,10 +77,11 @@ def routed(monkeypatch):
     launch replaced by a recorder that runs its twin; returns the list of
     kernels launched. A wrapper is replaced whole: the stand-in decides
     by `_kernels.use` as the wrapper does, then records the launch.
-    adam_leaves and preprocess decide and launch in one function, so they
-    are recorded where they launch: P1 and P2 at _preprocess_fwd and
-    _preprocess_bwd, Adam where it resolves its entry point, its outputs
-    left unwritten (only the routing is checked)."""
+    adam_leaves, preprocess and deform decide and launch in one function,
+    so they are recorded where they launch: P1 and P2 at _preprocess_fwd
+    and _preprocess_bwd, T1 and T2 at _deform_fwd and _deform_bwd, Adam
+    where it resolves its entry point, its outputs left unwritten (only
+    the routing is checked)."""
     seen = []
     use = _kernels.use
 
@@ -125,6 +127,10 @@ def routed(monkeypatch):
                                                         _p1_twin))
     monkeypatch.setattr(prep, "_preprocess_bwd", launch(
         "preprocess_bwd", prep.preprocess_bwd_torch))
+    monkeypatch.setattr(gm, "_deform_fwd", launch("deform",
+                                                  gm.deform_fwd_torch))
+    monkeypatch.setattr(gm, "_deform_bwd", launch("deform_bwd",
+                                                  gm.deform_bwd_torch))
     return seen
 
 
@@ -211,7 +217,7 @@ def test_plain_count_survives_threads():
 def test_backward_follows_forward(routed, trainer, forward_plain):
     """A frame's forward under one decision, its backward started on
     another thread under the other: the backward takes the kernels (B4,
-    B5, B8, P2) exactly when the forward did."""
+    B5, B8, P2, T2) exactly when the forward did."""
     tr, (cam, batch, rays) = trainer
     trainables = TrainableState(gaussians=tr.params, env=tr.env)
     inputs = [x.detach().requires_grad_(True) for x in leaves(trainables)]

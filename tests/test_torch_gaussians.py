@@ -1,6 +1,7 @@
 """adgs_tpu_torch.models.gaussians and convert against adgs_tpu.models:
-weights carried across, create_from_pcd padding, and deformed_package of
-the KITTI-75 model at three times (1e-5)."""
+weights carried across, create_from_pcd padding, and the deformation
+(`deform`, the plain version on CPU tensors) of the KITTI-75 model at
+three times (1e-5)."""
 
 import dataclasses
 
@@ -106,7 +107,7 @@ def test_deformed_package(rng, t):
     cfg_j, params, state = _jax_model(rng)
     cfg, tp, ts = _port_model(cfg_j, params, state)
     ref = jgm.deformed_package(params, state, cfg_j, jnp.float32(t))
-    port = tgm.deformed_package(tp, ts, cfg, torch.tensor(t))
+    port, _ = tgm.deform(tp, ts, cfg, torch.tensor(t))
     for k in ("xyz", "rotation", "shs", "opacity"):
         np.testing.assert_allclose(port[k].numpy(), np.asarray(ref[k]),
                                    err_msg=k, **TOL)

@@ -432,7 +432,7 @@ def test_launches_and_no_sync_on_card(card):
                         fovy=2 * math.atan(height / (2 * focal)),
                         width=width, height=height, time=0.4, device=card)
     so = torch.zeros((params.capacity, 2), device=card, requires_grad=True)
-    pkg = gm.deformed_package(params, state, cfg, cam.time)
+    pkg, _ = gm.deform(params, state, cfg, cam.time)
     ins = [pkg["xyz"], gm.activated_scaling(params), pkg["rotation"],
            pkg["shs"], so]
     st = settings_for_camera(cam, 3)
