@@ -82,6 +82,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def rig_groups(frames) -> list:
+    """Runs of consecutive frames that share one time (a camera rig at one
+    timestamp), each served as one frame: one deformation for the rig."""
+    groups: list = []
+    for fr in frames:
+        if groups and groups[-1][0].time == fr.time:
+            groups[-1].append(fr)
+        else:
+            groups.append([fr])
+    return groups
+
+
 def render_set(model_path, name, iteration, frames, params, state, config,
                env, model_cfg, active_sh, device, layout="gather",
                cal_metrics=True, output_video=False, cam_order=()):
@@ -98,28 +110,34 @@ def render_set(model_path, name, iteration, frames, params, state, config,
     render_fn = render_lib.make_staged_render_fn(
         config, active_sh_degree=active_sh, inv_depth=model_cfg.inv_depth,
         capacity=model_cfg.capacity, layout=layout)
-    for idx, fr in enumerate(frames):
-        cam, batch, _ = load_frame(fr, model_cfg.resolution, device=device)
-        if fr.cam_id not in rays_cache:
-            rays_cache[fr.cam_id] = torch.as_tensor(
-                camera_rays(cam.focal_x, cam.height, cam.width),
-                dtype=torch.float32, device=device)
+    idx = 0
+    for rig in rig_groups(frames):
+        loaded = [load_frame(fr, model_cfg.resolution, device=device)
+                  for fr in rig]
+        for fr, (cam, _, _) in zip(rig, loaded):
+            if fr.cam_id not in rays_cache:
+                rays_cache[fr.cam_id] = torch.as_tensor(
+                    camera_rays(cam.focal_x, cam.height, cam.width),
+                    dtype=torch.float32, device=device)
         t0 = time_mod.time()
-        out = render_fn(cam, params, state, env, rays_cache[fr.cam_id])
-        img = torch.clamp(out["render"], 0.0, 1.0)
+        outs = render_fn([cam for cam, _, _ in loaded], params, state, env,
+                         [rays_cache[fr.cam_id] for fr in rig])
+        imgs = [torch.clamp(out["render"], 0.0, 1.0) for out in outs]
         _sync(device)
         total_time += time_mod.time() - t0
-        if cal_metrics:
-            psnrs.append(float(psnr(img, batch.image)))
-            ssims.append(float(ssim(img, batch.image)))
-            if lp_vgg is not None:
-                lpips_vgg.append(float(lp_vgg(img, batch.image)))
-            if lp_alex is not None:
-                lpips_alex.append(float(lp_alex(img, batch.image)))
-        _save_png(os.path.join(render_path, f"{idx:05d}.png"), img)
-        _save_png(os.path.join(gts_path, f"{idx:05d}.png"), batch.image)
-        if output_video:
-            renderings.setdefault(fr.cam_id, []).append(_to_uint8(img))
+        for fr, (_, batch, _), img in zip(rig, loaded, imgs):
+            if cal_metrics:
+                psnrs.append(float(psnr(img, batch.image)))
+                ssims.append(float(ssim(img, batch.image)))
+                if lp_vgg is not None:
+                    lpips_vgg.append(float(lp_vgg(img, batch.image)))
+                if lp_alex is not None:
+                    lpips_alex.append(float(lp_alex(img, batch.image)))
+            _save_png(os.path.join(render_path, f"{idx:05d}.png"), img)
+            _save_png(os.path.join(gts_path, f"{idx:05d}.png"), batch.image)
+            if output_video:
+                renderings.setdefault(fr.cam_id, []).append(_to_uint8(img))
+            idx += 1
 
     if output_video and renderings:
         # per-camera videos concatenated side by side (render.py:72-86)

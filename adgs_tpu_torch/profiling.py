@@ -45,7 +45,17 @@ does nothing when none records). The program counts:
     and copies dropped for want of a free slot, both blocks summed (in
     "trainer.densify", from its report read in one copy);
   - "capacity_grows": a growth of the instance capacity or of the
-    Gaussian blocks (in its span "trainer.grow").
+    Gaussian blocks (in its span "trainer.grow");
+  - "frame_cameras", "frame_deforms": the cameras that a served frame
+    renders and the deformations it evaluates (in its root "serve.frame":
+    a rig of three cameras at one time counts 3 and 1, a single camera 1
+    and 1).
+
+The served frame (render.make_staged_render_fn) is the root
+"serve.frame" > "render.deform", then one "render.camera" for each of
+its cameras (numbered by the camera's place in the frame) >
+"render.preprocess", "render.binning", "render.compositing",
+"render.sky".
 
 The store keeps the last `MAX_ROOTS` roots; `reset()` clears it, and
 `summary()` reduces it to per-root means. One store serves the process,
@@ -96,7 +106,8 @@ _state = _State()
 
 class Span:
     """A recording span (see the module docstring): name, number (the
-    root's iteration or frame, None below it), start_ns / end_ns
+    root's iteration or frame; below it None, or the child's place that
+    the caller gave), start_ns / end_ns
     (`time.time_ns()`), parent, children, counts (the counters added while
     it was the innermost recording span, or None)."""
 
@@ -161,9 +172,10 @@ _OFF = _Off()
 
 def span(name: str, number: Optional[int] = None):
     """A context manager that records `name` under the rules of the module
-    docstring; `number` labels a root (its iteration or frame)."""
+    docstring; `number` labels a root (its iteration or frame), or a child
+    among its siblings (a camera's place in a served frame)."""
     if _state.open:
-        return Span(name)
+        return Span(name, number)
     if _state.off or not _profiler_enabled():
         return _OFF
     return Span(name, number)

@@ -21,7 +21,7 @@ from .core.camera import Camera
 from .models.env_map import EnvironmentMap
 from .models.gaussians import (GaussianConfig, GaussianParams, GaussianState,
                                activated_scaling, deform, obj_mask)
-from .profiling import span
+from .profiling import count, span
 from .raster import binning as binning_lib
 from .raster import preprocess as prep_lib
 from .raster.api import rasterize
@@ -65,24 +65,49 @@ def make_staged_render_fn(config: GaussianConfig,
                           render_objmask: bool = False,
                           layout: str = "gather"):
     """The serving entry point: render() with its options bound. Returns
-    fn(camera, params, state, env, cam_rays, stage_marks=None) -> render()
-    dict, computed without an autograd graph. The JAX entry point splits
-    binning and rendering into two compiled programs; run eagerly, one
-    deform and one preprocess feed both, so the port needs no split.
+    fn(camera, params, state, env, cam_rays, stage_marks=None), computed
+    without an autograd graph. `camera` is a Camera, and fn returns its
+    render() dict; or a rig: a sequence of Cameras that share one time,
+    with `cam_rays` a matching sequence of ray sets, and fn returns each
+    camera's render() dict, in order. The shared time is the caller's
+    promise (fn reads nothing from the card to check it): the rig is
+    deformed once, at its first camera's time, and each camera rasterizes
+    and composites its sky on that one package. The JAX entry point
+    splits binning and rendering into two compiled programs; run eagerly,
+    one deform and one preprocess feed both, so the port needs no split.
     layout: the compositor's instance layout, "gather" or "rows" (the JAX
     package's ADGS_RM=0/1). Each call is one "serve.frame" root span
-    (profiling.span), numbered by the calls of this function."""
+    (profiling.span), numbered by the calls of this function, with the
+    counters "frame_cameras" and "frame_deforms"; each camera's part is a
+    "render.camera" span, numbered by its place in the frame. stage_marks
+    takes render()'s marks, the camera stages once for each camera."""
     frames = itertools.count()
+    sh_degree = (active_sh_degree if active_sh_degree is not None
+                 else config.sh_degree)
 
     @torch.no_grad()
     def full(camera, params, state, env, cam_rays, stage_marks=None):
+        rig = not isinstance(camera, Camera)
+        cams = list(camera) if rig else [camera]
+        rays = list(cam_rays) if rig else [cam_rays]
         with span("serve.frame", next(frames)):
-            return render(camera, params, state, config, env_map=env,
-                          cam_rays=cam_rays, render_objmask=render_objmask,
-                          active_sh_degree=active_sh_degree,
-                          inv_depth=inv_depth, capacity=capacity,
-                          stage_marks=stage_marks,
-                          layout=layout)
+            count("frame_cameras", len(cams))
+            count("frame_deforms", 1)
+            settings = [settings_for_camera(c, sh_degree, inv_depth)
+                        for c in cams]
+            mark(stage_marks, "start")
+            deformed = _deformed(params, state, config, cams[0].time, None,
+                                 render_objmask)
+            mark(stage_marks, "deform")
+            outs = []
+            for k, (cam, st, r) in enumerate(zip(cams, settings, rays)):
+                with span("render.camera", k):
+                    outs.append(_camera_part(
+                        cam, st, params, state, deformed, env, r,
+                        override_color=None, screen_offset=None,
+                        capacity=capacity, stage_marks=stage_marks,
+                        layout=layout))
+        return outs if rig else outs[0]
 
     return full
 
@@ -110,15 +135,31 @@ def render(camera: Camera, params: GaussianParams, state: GaussianState,
     settings = settings_for_camera(camera, sh_degree, inv_depth,
                                    scaling_modifier)
     mark(stage_marks, "start")
+    deformed = _deformed(params, state, config, camera.time, flow_time,
+                         render_objmask)
+    mark(stage_marks, "deform")
+    return _camera_part(camera, settings, params, state, deformed, env_map,
+                        cam_rays, override_color, screen_offset, capacity,
+                        stage_marks, layout)
 
+
+def _deformed(params, state, config, t, flow_time, render_objmask):
+    """render()'s first part, which depends on the time alone: (the
+    deformed package, the flow-time xyz, the object mask or None)."""
     with span("render.deform"):
-        pkg, flow_points = deform(params, state, config, camera.time,
-                                  flow_time)
+        pkg, flow_points = deform(params, state, config, t, flow_time)
         semantic = None
         if render_objmask:
             semantic = obj_mask(params).to(torch.float32)[:, None]
-    mark(stage_marks, "deform")
+    return pkg, flow_points, semantic
 
+
+def _camera_part(camera, settings, params, state, deformed, env_map,
+                 cam_rays, override_color, screen_offset, capacity,
+                 stage_marks, layout) -> dict[str, Any]:
+    """render()'s part for one camera on a deformed package: rasterize,
+    then the sky behind the foreground."""
+    pkg, flow_points, semantic = deformed
     out = rasterize(
         means3d=pkg["xyz"], opacities=pkg["opacity"],
         scales=activated_scaling(params), rotations=pkg["rotation"],

@@ -143,6 +143,52 @@ def test_deform_time_env_modes(model_dir, tmp_path, monkeypatch):
         assert np.abs(got[k].astype(int) - want[k].astype(int)).max() <= 1
 
 
+def _bytes(model, split):
+    d = os.path.join(model, split, f"ours_{ITER}")
+    return {f"{kind}/{f}": open(os.path.join(d, kind, f), "rb").read()
+            for kind in ("renders", "gt")
+            for f in sorted(os.listdir(os.path.join(d, kind)))}
+
+
+def test_render_set_serves_each_timestamp_as_one_rig(model_dir, tmp_path,
+                                                      monkeypatch):
+    """The scene's two cameras at each timestamp, served as one rig frame
+    (cli.render's rig_groups), write the same PNG bytes and the same
+    surround video as each frame served alone, and deform once a
+    timestamp."""
+    import imageio
+    import adgs_tpu_torch.render as trender
+    _no_lpips(monkeypatch, tmp_path)
+    videos, deforms = [], []
+    monkeypatch.setattr(imageio, "mimwrite",
+                        lambda path, video, **kw: videos.append(video))
+    real = trender.deform
+
+    def counted(*args, **kwargs):
+        deforms.append(float(args[3]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(trender, "deform", counted)
+    rigs = _copy(model_dir, tmp_path, "rigs")
+    trender_cli.main(["-m", rigs, "--device", "cpu", "--skip_test",
+                      "--video"])
+    grouped = list(deforms)
+    deforms.clear()
+    monkeypatch.setattr(trender_cli, "rig_groups",
+                        lambda frames: [[fr] for fr in frames])
+    alone = _copy(model_dir, tmp_path, "alone")
+    trender_cli.main(["-m", alone, "--device", "cpu", "--skip_test",
+                      "--video"])
+    times = [fr.time for fr in read_scene(
+        tcommon.load_cfg_args(model_dir)[0].source_path).train_frames]
+    assert deforms == pytest.approx(times)
+    assert len(grouped) == len(set(times)) < len(times)
+    assert grouped == pytest.approx(sorted(set(times)))
+    assert _bytes(rigs, "train") == _bytes(alone, "train")
+    assert len(videos) == 2 and videos[0].shape[2] == 2 * 64
+    np.testing.assert_array_equal(videos[0], videos[1])
+
+
 def test_cfg_args_backend_names(model_dir):
     model_cfg, opt = tcommon.load_cfg_args(model_dir)
     assert model_cfg.capacity == 1 << 14 and model_cfg.order_args == ORDER
